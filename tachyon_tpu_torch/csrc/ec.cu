@@ -1,0 +1,77 @@
+// K2 (complete XYZZ add) and K3 (XYZZ double), one thread per point.
+// Replace tachyon_tpu/ops/pallas_ec.py _add_call (pl.pallas_call at :209) and
+// _dbl_call (pl.pallas_call at :232).  Each coordinate is a (W, n) word-major
+// int32 array holding uint32 words.
+#include <cuda_runtime.h>
+
+#include "xyzz.cuh"
+
+template <int W>
+__global__ void add_xyzz_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
+                                const uint32_t* __restrict__ pzz, const uint32_t* __restrict__ pzzz,
+                                const uint32_t* __restrict__ qx, const uint32_t* __restrict__ qy,
+                                const uint32_t* __restrict__ qzz, const uint32_t* __restrict__ qzzz,
+                                uint32_t* ox, uint32_t* oy, uint32_t* ozz, uint32_t* ozzz,
+                                int64_t n, FieldConst<W> f) {
+  int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n) return;
+  Xyzz<W> p, q;
+  xyzz_load<W>(p, px, py, pzz, pzzz, n, k);
+  xyzz_load<W>(q, qx, qy, qzz, qzzz, n, k);
+  Xyzz<W> o = xyzz_add<W>(p, q, f);
+  xyzz_store<W>(ox, oy, ozz, ozzz, n, k, o);
+}
+
+template <int W>
+__global__ void dbl_xyzz_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
+                                const uint32_t* __restrict__ pzz, const uint32_t* __restrict__ pzzz,
+                                uint32_t* ox, uint32_t* oy, uint32_t* ozz, uint32_t* ozzz,
+                                int64_t n, FieldConst<W> f) {
+  int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n) return;
+  Xyzz<W> p;
+  xyzz_load<W>(p, px, py, pzz, pzzz, n, k);
+  Xyzz<W> o = xyzz_dbl<W>(p, f);
+  xyzz_store<W>(ox, oy, ozz, ozzz, n, k, o);
+}
+
+#define U32C(p) ((const uint32_t*)(p))
+#define U32(p) ((uint32_t*)(p))
+
+extern "C" cudaError_t tt_add_xyzz(const void* px, const void* py, const void* pzz,
+                                   const void* pzzz, const void* qx, const void* qy,
+                                   const void* qzz, const void* qzzz, void* ox, void* oy,
+                                   void* ozz, void* ozzz, int64_t n, const uint32_t* consts,
+                                   int W, void* stream) {
+  const int threads = 128;
+  const int64_t blocks = (n + threads - 1) / threads;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (W) {
+    case 8:
+      add_xyzz_kernel<8><<<(unsigned)blocks, threads, 0, s>>>(
+          U32C(px), U32C(py), U32C(pzz), U32C(pzzz), U32C(qx), U32C(qy), U32C(qzz), U32C(qzzz),
+          U32(ox), U32(oy), U32(ozz), U32(ozzz), n, load_consts<8>(consts));
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t tt_dbl_xyzz(const void* px, const void* py, const void* pzz,
+                                   const void* pzzz, void* ox, void* oy, void* ozz, void* ozzz,
+                                   int64_t n, const uint32_t* consts, int W, void* stream) {
+  const int threads = 128;
+  const int64_t blocks = (n + threads - 1) / threads;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (W) {
+    case 8:
+      dbl_xyzz_kernel<8><<<(unsigned)blocks, threads, 0, s>>>(
+          U32C(px), U32C(py), U32C(pzz), U32C(pzzz), U32(ox), U32(oy), U32(ozz), U32(ozzz), n,
+          load_consts<8>(consts));
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}

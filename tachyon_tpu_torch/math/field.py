@@ -1,0 +1,103 @@
+"""PrimeField: the array API over the port's Montgomery word ops.
+
+Port of ``tachyon_tpu/math/field.py``.  A value is a ``(W, *batch)`` int32
+word tensor in Montgomery form; the field holds its constants on one
+explicit ``device``, and every method is vectorized over the batch axes.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tachyon_tpu.fields.spec import FieldSpec
+from tachyon_tpu_torch.fields import limbs
+from tachyon_tpu_torch.ops import mont
+
+
+def _shape(shape) -> tuple:
+    return (shape,) if isinstance(shape, int) else tuple(shape)
+
+
+class PrimeField:
+    def __init__(self, spec: FieldSpec, device="cpu"):
+        self.spec = spec
+        self.device = torch.device(device)
+
+    @property
+    def W(self) -> int:
+        return limbs.word_count(self.spec)
+
+    @property
+    def L(self) -> int:
+        return self.spec.L
+
+    @property
+    def p(self) -> int:
+        return self.spec.p
+
+    @property
+    def name(self) -> str:
+        return self.spec.name
+
+    def __repr__(self):
+        return f"PrimeField({self.spec.name}, {self.device})"
+
+    # --- construction -----------------------------------------------------
+    def zeros(self, shape=()):
+        return mont.zeros(self.spec, _shape(shape), self.device)
+
+    def ones(self, shape=()):
+        return mont.ones(self.spec, _shape(shape), self.device)
+
+    def full(self, shape, value: int):
+        s = _shape(shape)
+        v = self.encode(value % self.p)
+        return v.reshape((self.W,) + (1,) * len(s)).expand(self.W, *s).contiguous()
+
+    def encode(self, xs):
+        """host Python ints -> Montgomery words (W, *shape) on the device."""
+        return limbs.encode(self.spec, np.asarray(xs, dtype=object), self.device)
+
+    def decode(self, words):
+        """Montgomery words -> numpy object array of Python ints."""
+        return limbs.decode(self.spec, words)
+
+    # --- arithmetic ---------------------------------------------------------
+    def add(self, a, b):
+        return mont.add(self.spec, a, b)
+
+    def sub(self, a, b):
+        return mont.sub(self.spec, a, b)
+
+    def neg(self, a):
+        return mont.neg(self.spec, a)
+
+    def mul(self, a, b):
+        return mont.mul(self.spec, a, b)
+
+    def square(self, a):
+        return mont.square(self.spec, a)
+
+    def double(self, a):
+        return mont.double(self.spec, a)
+
+    def mul_small(self, a, k: int):
+        return mont.mul_small(self.spec, a, k)
+
+    def pow_const(self, a, e: int):
+        return mont.pow_const(self.spec, a, e)
+
+    def inv(self, a):
+        return mont.inv(self.spec, a)
+
+    def batch_inverse(self, a, axis=-1):
+        return mont.batch_inverse(self.spec, a, axis=axis)
+
+    def is_zero(self, a):
+        return mont.is_zero(self.spec, a)
+
+    def eq(self, a, b):
+        return mont.eq(self.spec, a, b)
+
+    def select(self, mask, a, b):
+        return mont.select(mask, a, b)

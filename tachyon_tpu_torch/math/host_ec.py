@@ -1,0 +1,78 @@
+"""Exact Python-int short-Weierstrass arithmetic on the host (no torch, no jax).
+
+The port's counterpart of the JAX package's test helpers
+(``tests/test_ec.py`` ``py_add``/``py_mul``, ``math/msm.py``
+``_host_point_mul``/``msm_host_reference``): affine add, scalar multiple,
+an exact MSM, the MSM of a tiled point set (what ``chip_smoke.py`` checks
+the 2^22 MSM against), and the blind-point derivation of the sweeps.
+A point is an ``(x, y)`` tuple of ints, or None for infinity.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+BLIND_SEED = b"tachyon-tpu-msm-blind-0001"  # the JAX package's _blind_points seed
+
+
+def affine_add(p, q, a: int, mod: int):
+    if p is None:
+        return q
+    if q is None:
+        return p
+    x1, y1 = p
+    x2, y2 = q
+    if x1 == x2 and (y1 + y2) % mod == 0:
+        return None
+    if p == q:
+        lam = (3 * x1 * x1 + a) * pow(2 * y1, -1, mod) % mod
+    else:
+        lam = (y2 - y1) * pow(x2 - x1, -1, mod) % mod
+    x3 = (lam * lam - x1 - x2) % mod
+    y3 = (lam * (x1 - x3) - y1) % mod
+    return (x3, y3)
+
+
+def scalar_mul(p, k: int, a: int, mod: int):
+    """[k]P by double-and-add."""
+    acc, add = None, p
+    while k:
+        if k & 1:
+            acc = affine_add(acc, add, a, mod)
+        add = affine_add(add, add, a, mod)
+        k >>= 1
+    return acc
+
+
+def msm(points, scalars, a: int, mod: int):
+    """Exact sum_i [s_i] P_i (points may hold None for infinity)."""
+    acc = None
+    for pt, s in zip(points, scalars):
+        if pt is not None:
+            acc = affine_add(acc, scalar_mul(pt, int(s), a, mod), a, mod)
+    return acc
+
+
+def msm_tiled(gen, ks, scalar_limbs: np.ndarray, a: int, mod: int, order: int):
+    """MSM of points P_i = [ks[i mod m]] G with 16-bit-limb scalars
+    (Ls, n), n a multiple of m = len(ks): it equals [k_total] G with
+    k_total = sum_j ks[j] * (sum_{i = j mod m} s_i) mod order.  Per-class
+    limb sums in numpy, then one scalar multiple: milliseconds at n = 2^22."""
+    m = len(ks)
+    Ls, n = scalar_limbs.shape
+    sums = scalar_limbs.reshape(Ls, n // m, m).sum(axis=1, dtype=np.uint64)
+    k_total = 0
+    for j in range(m):
+        s_j = sum(int(sums[l, j]) << (16 * l) for l in range(Ls))
+        k_total += int(ks[j]) * s_j
+    return scalar_mul(gen, k_total % order, a, mod)
+
+
+def blind_points(gen, a: int, mod: int, order: int):
+    """The two sweep blind points [k]G, k from the same seeded generator as
+    the JAX package's ``_blind_points`` (so both packages blind alike)."""
+    rng = np.random.default_rng(np.frombuffer(BLIND_SEED, dtype=np.uint8))
+    pts = []
+    for _ in range(2):
+        k = int.from_bytes(rng.bytes(40), "little") % order
+        pts.append(scalar_mul(gen, k, a, mod))
+    return pts

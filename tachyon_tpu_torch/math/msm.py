@@ -1,0 +1,208 @@
+"""Pippenger multi-scalar multiplication in the suffix-sweep form.
+
+Port of ``tachyon_tpu/math/msm.py``; see its module docstring for the
+design.  For one c-bit window with the points sorted by digit,
+
+    window = sum_i d_i P_i = sum_{b=1}^{2^c - 1} T[pos_b],
+
+with T[j] = sum_{i >= j} P_i over the sorted array and
+pos_b = searchsorted(d_sorted, b).  Per window: one stable sort, a gather
+into C lanes x R rows, the K5 sweep (per-lane suffix sums from a blind D),
+a Hillis-Steele scan of the lane totals (K2), the T-gather at the bucket
+starts (K2), the K6 sweep and a fold (K2); Horner across windows (K3, K2).
+
+The XLA steps that are not Pallas kernels map to PyTorch calls:
+``lax.sort_key_val`` -> ``torch.sort(stable=True)``, ``jnp.take`` ->
+indexing, ``jnp.searchsorted`` -> ``torch.searchsorted``, ``scan`` and
+``fori_loop`` -> Python loops.
+"""
+from __future__ import annotations
+
+import functools
+import math
+
+import torch
+
+from tachyon_tpu_torch.math import host_ec
+from tachyon_tpu_torch.math.ec import AffinePoint, PointXYZZ, SWCurve
+from tachyon_tpu_torch.ops import cuda_msm, mont
+
+
+def optimal_window_bits(bits: int, n: int) -> int:
+    """ln(n) + 2, clamped to [10, 17] (as in the JAX package)."""
+    c = int(math.log(max(n, 2)) + 2.0)
+    return max(10, min(c, 17))
+
+
+def digit_decompose(scalars: torch.Tensor, total_bits: int, c: int) -> torch.Tensor:
+    """(Ws, n) plain int32 scalar words -> (nwin, n) int32 digits in [0, 2^c).
+    A digit of c <= 32 bits spans at most two words; the work is in int64."""
+    Ws = scalars.shape[0]
+    w = mont.widen(scalars)
+    nwin = (total_bits + c - 1) // c
+    mask = (1 << c) - 1
+    digs = []
+    for k in range(nwin):
+        o = k * c
+        i0, sh = o // 32, o % 32
+        v = w[i0] >> sh
+        if sh + c > 32 and i0 + 1 < Ws:
+            v = v | (w[i0 + 1] << (32 - sh))
+        digs.append(v & mask)
+    return torch.stack(digs).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _blind_ints(curve_key: tuple):
+    gen_x, gen_y, mod, order = curve_key
+    return host_ec.blind_points((gen_x, gen_y), 0, mod, order)
+
+
+def _blind_points(curve: SWCurve):
+    """The two sweep blind points and their negations as XYZZ words (zz =
+    zzz = mont(1)), equal to the JAX package's ``_blind_points``."""
+    F = curve.F
+    pts = []
+    for x, y in _blind_ints((int(curve.gen_x), int(curve.gen_y), F.p, curve.SF.p)):
+        one = F.encode(1)
+        p = PointXYZZ(F.encode(x), F.encode(y), one, one.clone())
+        pts.append((p, PointXYZZ(p.x, F.encode(-y % F.p), one, one.clone())))
+    return pts
+
+
+def _bcast(p: PointXYZZ, shape) -> PointXYZZ:
+    """Broadcast a single point to a batch shape (contiguous copies)."""
+    return PointXYZZ(*(t.reshape(t.shape + (1,) * len(shape))
+                       .expand(t.shape + tuple(shape)).contiguous() for t in p))
+
+
+def _shift_left(p: PointXYZZ, s: int) -> PointXYZZ:
+    """Lane shift along the last axis: out[..., c] = p[..., c + s], with
+    infinity (all-zero coordinates) shifted in at the end."""
+    def sh(t):
+        s_ = min(s, t.shape[-1])
+        pad = torch.zeros(t.shape[:-1] + (s_,), dtype=t.dtype, device=t.device)
+        return torch.cat([t[..., s_:], pad], dim=-1)
+
+    return PointXYZZ(*(sh(t) for t in p))
+
+
+def _suffix_scan_lanes(curve: SWCurve, u: PointXYZZ) -> PointXYZZ:
+    """EXCLUSIVE suffix sums over the last axis: out[c] = sum_{c' > c} u[c']
+    (Hillis-Steele, log C steps)."""
+    C = u.x.shape[-1]
+    wk = _shift_left(u, 1)
+    for i in range(max(C - 1, 0).bit_length()):
+        wk = curve.add_xyzz(wk, _shift_left(wk, 1 << i))
+    return wk
+
+
+def _fold_reduce_lanes(curve: SWCurve, pts: PointXYZZ) -> PointXYZZ:
+    """Sum over the last axis (power-of-two length) by folding in half at
+    fixed width; the result is lane 0."""
+    C = pts.x.shape[-1]
+    assert C & (C - 1) == 0
+    for i in range(C.bit_length() - 1):
+        pts = curve.add_xyzz(pts, _shift_left(pts, C >> (i + 1)))
+    return PointXYZZ(*(t[..., 0].contiguous() for t in pts))
+
+
+def _sweep_suffix(curve: SWCurve, gx, gy, ginf, d: PointXYZZ) -> PointXYZZ:
+    """gx/gy: (W, R, C) sorted coords, ginf (R, C) -> suffix sums
+    (W, R, C) with suffix[:, r, c] = D + sum_{r' >= r} P[:, r', c]."""
+    C = gx.shape[-1]
+    dc = _bcast(d, (C,))
+    x_r = gx.permute(1, 0, 2).contiguous()  # (R, W, C) rows for the sweep
+    y_r = gy.permute(1, 0, 2).contiguous()
+    inf_r = ginf.to(torch.int32)[:, None, :].contiguous()
+    suf = cuda_msm.suffix_sweep(curve.F.spec, x_r, y_r, inf_r, tuple(dc))
+    return PointXYZZ(*(t.permute(1, 0, 2) for t in suf))
+
+
+def _sweep_reduce(curve: SWCurve, pts: PointXYZZ, d: PointXYZZ) -> PointXYZZ:
+    """(W, R, C) XYZZ values -> (W, C) blinded column totals."""
+    C = pts.x.shape[-1]
+    dc = _bcast(d, (C,))
+    rows = tuple(t.permute(1, 0, 2).contiguous() for t in pts)
+    return PointXYZZ(*cuda_msm.reduce_sweep(curve.F.spec, rows, tuple(dc)))
+
+
+def _window_sum(curve: SWCurve, packed, dw, C, R, B, blind1, blind2) -> PointXYZZ:
+    """One Pippenger window: sum_i dw_i * P_i via the sorted suffix-sum
+    identity.  packed: (2W, R*C) words, x then y, all zero at infinity;
+    dw: (R*C,) int32 digits in [0, B)."""
+    d1, nd1 = blind1
+    d2, nd2 = blind2
+    W = packed.shape[0] // 2
+    n_pad = R * C
+    C2 = min(512, B)
+    R2 = max(1, B // C2)
+    d_s, order = torch.sort(dw, stable=True)
+    idx2 = order.reshape(C, R).t().reshape(-1)  # (R*C,): item c*R + r
+    g = packed.index_select(1, idx2).reshape(2 * W, R, C)
+    ginf = (g == 0).all(dim=0)
+    suffix = _sweep_suffix(curve, g[:W], g[W:], ginf, d1)
+    # true column totals U = suffix[:, 0, :] - D, then the exclusive
+    # lane-suffix scan Wk[c] = sum_{c' > c} U[c']
+    u = curve.add_xyzz(PointXYZZ(*(t[:, 0, :].contiguous() for t in suffix)),
+                       _bcast(nd1, (C,)))
+    wk = _suffix_scan_lanes(curve, u)
+    wpp = curve.add_xyzz(wk, _bcast(nd1, (C,)))  # W'' = W - D
+    # gather T at bucket starts: global sorted index k -> (r = k % R, c = k // R)
+    bq = torch.arange(1, B, dtype=dw.dtype, device=dw.device)
+    pos = torch.searchsorted(d_s, bq)             # (B-1,) in [0, n_pad]
+    valid = pos < n_pad
+    posc = torch.where(valid, pos, 0)
+    tg = PointXYZZ(*(t[:, posc % R, posc // R] for t in suffix))
+    wg = PointXYZZ(*(t[:, posc // R] for t in wpp))
+    tv = curve.add_xyzz(tg, wg)
+    tv = PointXYZZ(*(torch.where(valid[None], t, 0) for t in tv))
+    # reduce the B-1 T values (pad one infinity to B; any order works)
+    tv = PointXYZZ(*(torch.nn.functional.pad(t, (0, 1)).reshape(W, R2, C2)
+                     for t in tv))
+    red = _sweep_reduce(curve, tv, d2)            # (W, C2), D2-biased lanes
+    red = curve.add_xyzz(red, _bcast(nd2, (C2,)))  # unbias every lane
+    return _fold_reduce_lanes(curve, red)
+
+
+def _layout_and_blinds(curve: SWCurve, n: int):
+    """The (R, C) sweep layout for n points, and the blind points."""
+    C = 4096 if n >= (1 << 15) else 512
+    R = -(-n // C)
+    return C, R, _blind_points(curve)
+
+
+def msm(curve: SWCurve, points: AffinePoint, scalars: torch.Tensor,
+        c: int | None = None, total_bits: int | None = None) -> PointXYZZ:
+    """Variable-base MSM: sum_i scalars_i * points_i -> one XYZZ point.
+
+    points: AffinePoint with (W, n) coords; scalars: (Ws, n) plain int32
+    words of the scalar field.  total_bits overrides the scalar bit width.
+    """
+    n = scalars.shape[1]
+    # Every n takes the sweep path.  The JAX package sends n <= 128 to a
+    # naive double-and-add (`_msm_naive`), which needs scalar_mul and the
+    # mixed-add kernel K4; both arrive in a later port step.  The sweep path
+    # is exact at small n too (the JAX tests run it at n = 300, c = 10).
+    total_bits = total_bits or curve.SF.spec.bits
+    c = c or optimal_window_bits(total_bits, n)
+    B = 1 << c
+    digits = digit_decompose(scalars, total_bits, c)  # (nwin, n)
+
+    C, R, (blind1, blind2) = _layout_and_blinds(curve, n)
+    n_pad = R * C
+    live = (~points.inf).to(torch.int32)[None]
+    # x || y words, all zero at infinity (x = y = 0 is not on a b != 0 curve)
+    packed = torch.cat([points.x * live, points.y * live], dim=0)
+    if n_pad != n:
+        packed = torch.nn.functional.pad(packed, (0, n_pad - n))
+        digits = torch.nn.functional.pad(digits, (0, n_pad - n))
+
+    acc = curve.infinity_xyzz(())
+    for k in range(digits.shape[0] - 1, -1, -1):  # MSB window first
+        win = _window_sum(curve, packed, digits[k].contiguous(), C, R, B,
+                          blind1, blind2)
+        for _ in range(c):  # Horner: acc = 2^c acc + win
+            acc = curve.dbl_xyzz(acc)
+        acc = curve.add_xyzz(acc, win)
+    return acc

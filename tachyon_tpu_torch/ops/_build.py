@@ -1,0 +1,98 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Every ``csrc/*.cu`` is compiled by ``nvcc`` into one shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o libtachyon_kernels.so csrc/*.cu
+
+The library lands in ``tachyon_tpu_torch/_build/<key>/``, where the key
+hashes the sources and the flags, so a rerun on unchanged sources loads the
+library it built before.  Only sources in this repository are compiled.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD = PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# (name, argtypes) of every extern "C" launcher; each returns cudaError_t
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+LAUNCHERS = {
+    "tt_mont_mul": [_P, _P, _P, _I64, _P, ctypes.c_int, _P],
+    "tt_add_xyzz": [_P] * 12 + [_I64, _P, ctypes.c_int, _P],
+    "tt_dbl_xyzz": [_P] * 8 + [_I64, _P, ctypes.c_int, _P],
+    "tt_suffix_sweep": [_P] * 11 + [_I64, _I64, _P, ctypes.c_int, _P],
+    "tt_reduce_sweep": [_P] * 12 + [_I64, _I64, _P, ctypes.c_int, _P],
+}
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not Path(found).exists():
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    return found
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def build_key() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """Compile (or reuse) and load the kernel library; raises with nvcc's
+    output when the build fails."""
+    out_dir = BUILD / build_key()
+    lib_path = out_dir / "libtachyon_kernels.so"
+    if not lib_path.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out_dir / f"libtachyon_kernels.{os.getpid()}.so"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *(str(s) for s in sorted(CSRC.glob("*.cu")))]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        (out_dir / "nvcc.log").write_text(r.stdout + r.stderr)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in LAUNCHERS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def nvcc_log() -> str:
+    log = BUILD / build_key() / "nvcc.log"
+    return log.read_text() if log.exists() else ""
+
+
+def launch(name: str, *args) -> None:
+    """Call one launcher on PyTorch's current stream; raise on a CUDA error."""
+    import torch
+
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(library(), name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}")

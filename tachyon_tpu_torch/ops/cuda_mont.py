@@ -1,0 +1,113 @@
+"""K1: elementwise Montgomery multiply as a hand-written CUDA kernel.
+
+Replaces the Pallas kernel ``tachyon_tpu/ops/pallas_mont.py`` ``_mul_call``
+(``pl.pallas_call`` at line 90, body ``_mul_body``): a . b . R^-1 mod p,
+canonical, over a flat batch of field elements.
+
+Kernel (``csrc/mont_mul.cu``, ``csrc/field.cuh``): one thread per element,
+word-major ``(W, n)`` layout so that the threads of a warp load neighbouring
+words.  W-word CIOS with 32-bit words (8 rounds for BN254 instead of the
+TPU's 16 rounds of 16-bit limbs, since Hopper has a widening 32x32->64
+multiply and the TPU's VPU does not).  Bound on the card: at 2^22 elements
+it moves 96 bytes per element against ~140 integer multiply-adds, so it
+sits near the memory roofline; on the MSM path it runs on one or two
+elements (``to_affine``) and is launch-bound there.
+
+``mul_plain`` is the plain PyTorch twin: the CPU path and the reference the
+kernel is held against on the card.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from tachyon_tpu.fields.spec import FieldSpec
+from tachyon_tpu_torch.fields.limbs import int_to_words, n0inv32, word_count
+from tachyon_tpu_torch.ops import _build
+from tachyon_tpu_torch.ops.mont import _consts, csub_p, ripple, widen
+
+SUPPORTED_W = (8,)  # word counts the kernels are instantiated for (BN254)
+
+
+@functools.lru_cache(maxsize=None)
+def field_consts(f: FieldSpec):
+    """Host array handed to every launcher: p words, mont(1) words, n0inv32."""
+    W = word_count(f)
+    vals = [*int_to_words(f.p, W), *int_to_words(f.R_mod_p, W), n0inv32(f)]
+    return (ctypes.c_uint32 * len(vals))(*(int(v) for v in vals))
+
+
+def consts_ptr(f: FieldSpec) -> int:
+    return ctypes.addressof(field_consts(f))
+
+
+def check_cuda(f: FieldSpec, *ts: torch.Tensor) -> int:
+    """Check the kernels can take these tensors; returns W."""
+    W = word_count(f)
+    if W not in SUPPORTED_W:
+        raise ValueError(f"{f.name}: no CUDA kernel for W={W} (have {SUPPORTED_W})")
+    dev = ts[0].device
+    for t in ts:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"tensors must share one CUDA device, got {t.device}")
+        if t.dtype != torch.int32:
+            raise TypeError(f"expected int32 words, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+    return W
+
+
+@functools.lru_cache(maxsize=None)
+def _antidiag(L: int, device: torch.device) -> torch.Tensor:
+    """(L*L,) column index i + j of the partial product a_i * b_j."""
+    i = torch.arange(L, device=device)
+    return (i[:, None] + i[None, :]).reshape(-1)
+
+
+def mul_plain(f: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain twin of K1: 16-bit limb product columns (one broadcasted
+    (L, L, *batch) int64 product), L Montgomery rounds on 16-bit digits
+    (``spec.n0inv``), then 32-bit word normalization and one conditional
+    subtract.  Columns stay below 2^40, so int64 never overflows."""
+    a, b = torch.broadcast_tensors(a, b)
+    L = f.L
+    batch = a.shape[1:]
+
+    def limbs16(t):
+        w = widen(t)
+        return torch.stack([w & 0xFFFF, w >> 16], dim=1).reshape(L, *batch)
+
+    prod = limbs16(a)[:, None] * limbs16(b)[None, :]  # (L, L, *batch) < 2^32
+    cols = torch.zeros((2 * L + 1, *batch), dtype=torch.int64, device=a.device)
+    cols.index_add_(0, _antidiag(L, a.device), prod.reshape(L * L, *batch))
+    p16 = _consts(f, a.device)["p16"].reshape((L,) + (1,) * len(batch))
+    n0 = int(f.n0inv)
+    for i in range(L):
+        m = (cols[i] * n0) & 0xFFFF
+        cols[i:i + L] += m * p16
+        cols[i + 1] += cols[i] >> 16  # low 16 bits of cols[i] are now zero
+    hi = cols[L:2 * L]
+    words, c = ripple(hi[0::2] + (hi[1::2] << 16))
+    return csub_p(f, words, cols[2 * L] + c)
+
+
+def mul(f: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Montgomery product of (W, *batch) int32 words.  CPU tensors take
+    ``mul_plain``; CUDA tensors launch K1 or raise."""
+    a, b = torch.broadcast_tensors(a, b)
+    if a.device.type == "cpu":
+        return mul_plain(f, a, b)
+    a, b = a.contiguous(), b.contiguous()
+    W = check_cuda(f, a, b)
+    n = a.numel() // W
+    out = torch.empty_like(a)
+    if n:
+        _build.launch("tt_mont_mul", a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                      n, consts_ptr(f), W)
+        mul.launches += 1
+    return out
+
+
+mul.launches = 0
