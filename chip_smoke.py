@@ -6,16 +6,25 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device: requires CUDA and prints the card's name and power limit;
-2. build: compiles the CUDA kernels from tachyon_tpu_torch/csrc;
-3. kernels: each of K1, K2, K3, K5, K6 against its plain PyTorch twin on the
-   card, bit-exact on the words, both timed with CUDA events;
-4. slice: the BN254 G1 MSM at n = 2^22 (msm + to_affine) on the point set of
+2. build: compiles the CUDA kernels from tachyon_tpu_torch/csrc (one nvcc
+   per source, all started together);
+3. kernels: each of K1-K6 against its plain PyTorch twin on the card,
+   bit-exact on the words, both timed with CUDA events, beside its bound:
+   the larger of its bytes over 3.35 TB/s and its 32x32-bit word products
+   over 64 per clock per SM x 132 SMs x the card's max SM clock;
+4. MSM: the BN254 G1 MSM at n = 2^22 (msm + to_affine) on the point set of
    bench.py (256 exact multiples of G, seed 42, tiled; 254-bit scalars),
    checked against the host-exact point, with the kernels' launch counts;
-5. prints the kernels' JSON line, then the result line
+5. KZG: the BN254 KZG path at n = 2^20 (unsafe setup, commit,
+   commit_lagrange, open, verify; a 64-coefficient commit on the naive MSM
+   path; Pedersen setup(64) + commit), each step checked against host ints,
+   with its time and the kernels' launch counts;
+6. prints the card's line, the kernels' JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", ...}} last.
 
-Imports no JAX: the port is torch-only.
+Each main path (4 and 5) runs with every launch count set to 0 just before
+it, and fails if a kernel of that path was launched no time.  Imports no
+JAX and nothing of the JAX package: the port is torch-only.
 """
 from __future__ import annotations
 
@@ -23,27 +32,40 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from tachyon_tpu_torch.crypto import kzg, pedersen
 from tachyon_tpu_torch.fields import limbs
 from tachyon_tpu_torch.math import curves, host_ec
 from tachyon_tpu_torch.math.ec import AffinePoint
 from tachyon_tpu_torch.math.msm import _blind_points, _bcast, msm, optimal_window_bits
+from tachyon_tpu_torch.math.ntt import Radix2Domain
 from tachyon_tpu_torch.ops import _build, cuda_ec, cuda_mont, cuda_msm, mont
 
-LOG_N = 22
+LOG_N = 22      # the MSM path
+KZG_LOG_N = 20  # the KZG path
+KZG_SAMPLES = 64  # SRS points checked against host ints, of each kind
 SEED = 42
-# shapes the kernels are checked at: those the 2^22 MSM gives them (c = 17)
+# shapes the kernels are checked at: those the 2^22 MSM (c = 17) and the
+# 2^20 KZG setup give them
 SIZES = {
     "k1_fq": 1 << 22,       # K1 elements, BN254 Fq
     "k1_fr": 1 << 16,       # K1 elements, BN254 Fr
     "k2": (1 << 17) - 1,    # K2 lanes: the T-gather width 2^c - 1
     "k3": 4096,             # K3 lanes
+    "k4": 1 << 20,          # K4 lanes: scalar_mul over the 2^20 SRS
     "k5": (1024, 4096, 16), # K5 (R, C) and the rows its plain twin runs
     "k6": (256, 512),       # K6 (R2, C2)
 }
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, at 700 W
+IMAD_PER_CLK_SM = 64       # 32-bit integer multiply-adds per clock per SM, cc 9.0
+SMS = 132
+# word products of one W = 8 Montgomery multiply (CIOS: W^2 for a*b, W^2 + W
+# for m*p); the SASS count of K1's kernel replaces it where cuobjdump runs
+WORD_PRODUCTS = 2 * 8 * 8 + 8
 
 # name -> (wrapper carrying the launch count, source, TPU kernel it replaces)
 KERNELS = {
@@ -53,6 +75,8 @@ KERNELS = {
                  "tachyon_tpu/ops/pallas_ec.py:209"),
     "dbl_xyzz": (cuda_ec.dbl_xyzz, "tachyon_tpu_torch/csrc/ec.cu",
                  "tachyon_tpu/ops/pallas_ec.py:232"),
+    "madd_xyzz": (cuda_ec.madd_xyzz, "tachyon_tpu_torch/csrc/ec.cu",
+                  "tachyon_tpu/ops/pallas_ec.py:257"),
     "suffix_sweep": (cuda_msm.suffix_sweep, "tachyon_tpu_torch/csrc/msm_sweeps.cu",
                      "tachyon_tpu/ops/pallas_msm.py:147"),
     "reduce_sweep": (cuda_msm.reduce_sweep, "tachyon_tpu_torch/csrc/msm_sweeps.cu",
@@ -111,18 +135,38 @@ def tile(t: torch.Tensor, n: int) -> torch.Tensor:
     return t.repeat(1, reps)[:, :n].contiguous()
 
 
-def check(name, got, want, kernel_ms, plain_ms, shape, plain_shape, results):
+def bound_ms(nbytes: int, products: int, clock_hz: float) -> tuple[float, str]:
+    """Least time for the work: bytes over the memory rate, or word products
+    over the integer multiply-add rate, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = products / (IMAD_PER_CLK_SM * SMS * clock_hz)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check(name, got, want, kernel_ms, plain_ms, shape, plain_shape, work, results):
+    """Hold a kernel's output against its twin's; record the first (main
+    path) shape's numbers.  work = (bytes, word products, clock in Hz)."""
     err = word_err(got, want)
+    bms, by = bound_ms(*work)
     log(f"[kernel] {name}: shape {shape} max_abs_err {err} kernel {kernel_ms:.4f} ms "
-        f"plain {plain_ms:.4f} ms (plain at {plain_shape})")
+        f"plain {plain_ms:.4f} ms (plain at {plain_shape}) bound {bms:.4f} ms ({by}; "
+        f"{work[0]} bytes, {work[1]} word products)")
     if err != 0:
         raise AssertionError(f"{name}: kernel disagrees with its plain twin (max_abs_err {err})")
-    # the first (main-path) shape is the one reported for a kernel
     results.setdefault(name, {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-                              "shape": shape, "plain_shape": plain_shape})
+                              "bound_ms": bms, "bound_by": by, "shape": shape,
+                              "plain_shape": plain_shape})
 
 
-def phase_kernels(device, base_x, base_y, results):
+def lifted(f, x, y, lam):
+    """Affine (x, y) as XYZZ (x l^2, y l^3, l^2, l^3): zz != 1."""
+    l2 = mont.mul(f, lam, lam)
+    l3 = mont.mul(f, l2, lam)
+    return (mont.mul(f, x, l2), mont.mul(f, y, l3), l2, l3)
+
+
+def phase_kernels(device, base_x, base_y, clock_hz, mm, results):
+    """mm: 32x32-bit multiply-adds of one field multiply, for the bounds."""
     g = torch.Generator(device=device)
     g.manual_seed(SEED)
     curve = curves.bn254_g1(device)
@@ -137,7 +181,7 @@ def phase_kernels(device, base_x, base_y, results):
         torch.cuda.synchronize()
         check("mont_mul", (got,), (want,), cuda_ms(lambda: cuda_mont.mul(f, a, b), 20),
               cuda_ms(lambda: cuda_mont.mul_plain(f, a, b), 2), f"{f.name} (8, {n})",
-              f"{f.name} (8, {n})", results)
+              f"{f.name} (8, {n})", (3 * 32 * n, mm * n, clock_hz), results)
         del want
 
     # K2 on the T-gather width at c = 17: 2^17 - 1 lanes, with P = Q, P = -Q
@@ -156,9 +200,13 @@ def phase_kernels(device, base_x, base_y, results):
     want = cuda_ec.add_xyzz_plain(fq, p, q)
     if not bool(mont.is_zero(fq, got[2])[lane % 7 == 2].all()):
         raise AssertionError("add_xyzz: P + (-P) is not infinity")
+    # multiplies the lanes need: 14 for an add, 4 + 9 where P = Q doubles,
+    # 4 where P = -Q, none where an input is infinity
+    cls = torch.bincount(lane % 7, minlength=7).tolist()
+    muls = 14 * (cls[0] + cls[6]) + 13 * cls[1] + 4 * cls[2]
     check("add_xyzz", got, want, cuda_ms(lambda: cuda_ec.add_xyzz(fq, p, q), 20),
           cuda_ms(lambda: cuda_ec.add_xyzz_plain(fq, p, q), 2), f"4 x (8, {n})",
-          f"4 x (8, {n})", results)
+          f"4 x (8, {n})", (12 * 32 * n, mm * muls, clock_hz), results)
 
     # K3 on 4096 lanes (the Horner doublings run on one), with infinity lanes
     n3 = SIZES["k3"]
@@ -166,9 +214,41 @@ def phase_kernels(device, base_x, base_y, results):
                  for t in got)
     got3 = cuda_ec.dbl_xyzz(fq, d_in)
     want3 = cuda_ec.dbl_xyzz_plain(fq, d_in)
+    live3 = int((~mont.is_zero(fq, d_in[2])).sum())
     check("dbl_xyzz", got3, want3, cuda_ms(lambda: cuda_ec.dbl_xyzz(fq, d_in), 20),
           cuda_ms(lambda: cuda_ec.dbl_xyzz_plain(fq, d_in), 2), f"4 x (8, {n3})",
-          f"4 x (8, {n3})", results)
+          f"4 x (8, {n3})", (8 * 32 * n3, mm * 9 * live3, clock_hz), results)
+
+    # K4 on 2^20 lanes (scalar_mul's width in the KZG setup): P lifted with
+    # zz != 1; lanes by lane % 7: 1 P = Q, 2 P = -Q, 3 p = inf, 4 q = inf,
+    # 5 both inf, else generic.
+    n4 = SIZES["k4"]
+    lane4 = torch.arange(n4, device=device)
+    ax, ay = tile(base_x, n4), tile(base_y, n4)
+    lam = random_elements(fq, n4, g, device)
+    lam = mont.select(mont.is_zero(fq, lam), mont.ones(fq, (n4,), device), lam)
+    p4 = lifted(fq, ax, ay, lam)
+    cls4 = lane4 % 7
+    qx = mont.select((cls4 == 1) | (cls4 == 2), ax, torch.roll(ax, 1, dims=1))
+    qy = mont.select(cls4 == 1, ay, torch.roll(ay, 1, dims=1))
+    qy = mont.select(cls4 == 2, mont.neg(fq, ay), qy)
+    qinf = (cls4 == 4) | (cls4 == 5)
+    p4 = tuple(mont.select((cls4 == 3) | (cls4 == 5), torch.zeros_like(t), t) for t in p4)
+    del lam, ax, ay
+    got4 = cuda_ec.madd_xyzz(fq, p4, qx, qy, qinf)
+    want4 = cuda_ec.madd_xyzz_plain(fq, p4, qx, qy, qinf)
+    if not bool(mont.is_zero(fq, got4[2])[(cls4 == 2) | (cls4 == 5)].all()):
+        raise AssertionError("madd_xyzz: P + (-P) or inf + inf is not infinity")
+    if not bool((got4[2][:, cls4 == 3] == mont.ones(fq, (1,), device)).all()):
+        raise AssertionError("madd_xyzz: inf + Q does not lift Q with zz = mont(1)")
+    # 10 multiplies for a mixed add, 2 + 9 where P = Q, 2 where P = -Q
+    c4 = torch.bincount(cls4, minlength=7).tolist()
+    muls4 = 10 * (c4[0] + c4[6]) + 11 * c4[1] + 2 * c4[2]
+    check("madd_xyzz", got4, want4, cuda_ms(lambda: cuda_ec.madd_xyzz(fq, p4, qx, qy, qinf), 20),
+          cuda_ms(lambda: cuda_ec.madd_xyzz_plain(fq, p4, qx, qy, qinf), 2),
+          f"4 x (8, {n4}) + 2 x (8, {n4}) + ({n4},)", f"(8, {n4})",
+          ((6 * 32 + 4 + 4 * 32) * n4, mm * muls4, clock_hz), results)
+    del p4, qx, qy, got4, want4
 
     # K5 at R = 1024, C = 4096 (2^22 points) with infinity lanes.  The sweep
     # runs bottom-up, so rows R - r0 .. R - 1 of its output depend only on
@@ -181,11 +261,14 @@ def phase_kernels(device, base_x, base_y, results):
     dc = tuple(_bcast(d1, (C,)))
     suf = cuda_msm.suffix_sweep(fq, x, y, inf, dc)
     want5 = cuda_msm.suffix_sweep_plain(fq, x[R - r0:], y[R - r0:], inf[R - r0:], dc)
+    live5 = R * C - int(inf.sum())
     check("suffix_sweep", tuple(t[R - r0:] for t in suf), want5,
           cuda_ms(lambda: cuda_msm.suffix_sweep(fq, x, y, inf, dc), 3),
           cuda_ms(lambda: cuda_msm.suffix_sweep_plain(
               fq, x[R - r0:], y[R - r0:], inf[R - r0:], dc), 1),
-          f"({R}, 8, {C})", f"({r0}, 8, {C})", results)
+          f"({R}, 8, {C})", f"({r0}, 8, {C})",
+          (R * C * (32 + 32 + 4) + 4 * 32 * C + 4 * 32 * R * C, mm * 10 * live5, clock_hz),
+          results)
 
     # K6 at R = 256, C = 512 (the c = 17 bucket reduce) over XYZZ rows cut
     # from the suffix sums, with infinity entries.
@@ -199,8 +282,10 @@ def phase_kernels(device, base_x, base_y, results):
     want6 = cuda_msm.reduce_sweep_plain(fq, rows, dc6)
     torch.cuda.synchronize()
     plain6 = (time.perf_counter() - t0) * 1e3
+    live6 = R6 * C6 - int(hole.sum())
     check("reduce_sweep", got6, want6, cuda_ms(lambda: cuda_msm.reduce_sweep(fq, rows, dc6), 10),
-          plain6, f"({R6}, 8, {C6})", f"({R6}, 8, {C6})", results)
+          plain6, f"({R6}, 8, {C6})", f"({R6}, 8, {C6})",
+          (4 * 32 * R6 * C6 + 2 * 4 * 32 * C6, mm * 14 * live6, clock_hz), results)
 
 
 def slice_inputs(curve, n: int):
@@ -215,8 +300,26 @@ def slice_inputs(curve, n: int):
     return points, limbs.from_jax_limbs(sc, curve.device), ks, sc
 
 
+MSM_PATH = ("mont_mul", "add_xyzz", "dbl_xyzz", "suffix_sweep", "reduce_sweep")
+
+
+def reset_launches() -> None:
+    for wrapper, _, _ in KERNELS.values():
+        wrapper.launches = 0
+
+
+def read_launches(path) -> dict:
+    """The launch counts of a main path's run; raise if one of its kernels
+    was launched no time."""
+    launches = {name: k[0].launches for name, k in KERNELS.items()}
+    missing = [name for name in path if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path: {missing}")
+    return launches
+
+
 def phase_slice(device):
-    """The MSM at 2^22 through the port's entry points; returns its record."""
+    """The MSM at 2^22 through the port's entry points; returns its launches."""
     curve = curves.bn254_g1(device)
     F, SF = curve.F, curve.SF
     n = 1 << LOG_N
@@ -232,13 +335,12 @@ def phase_slice(device):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for wrapper, _, _ in KERNELS.values():
-        wrapper.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     aff = run()
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {name: k[0].launches for name, k in KERNELS.items()}
+    launches = read_launches(MSM_PATH)
     peak = torch.cuda.max_memory_allocated()
 
     if aff.x.shape != (F.W,) or bool(aff.inf):
@@ -248,9 +350,6 @@ def phase_slice(device):
     got = (int(F.decode(aff.x)), int(F.decode(aff.y)))
     if got != expected:
         raise AssertionError(f"MSM result {got} != host-exact {expected}")
-    missing = [name for name, c in launches.items() if c == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
 
     times = []
     for _ in range(3):
@@ -269,6 +368,134 @@ def phase_slice(device):
     return launches
 
 
+def horner(cs, x: int, mod: int) -> int:
+    acc = 0
+    for c in reversed(cs):
+        acc = (acc * x + c) % mod
+    return acc
+
+
+def sampled_points(curve, pts: AffinePoint, idx) -> list:
+    """Affine ints of the points at idx (None at infinity)."""
+    sel = torch.as_tensor(idx, device=curve.device)
+    xs, ys = curve.F.decode(pts.x[:, sel]), curve.F.decode(pts.y[:, sel])
+    inf = pts.inf[sel].tolist()
+    return [None if i else (int(x), int(y)) for x, y, i in zip(xs, ys, inf)]
+
+
+def phase_kzg(device):
+    """The KZG path at 2^20 through the port's entry points, each step held
+    against host ints; returns its launches."""
+    g1 = curves.bn254_g1(device)
+    Fr, P = g1.SF, g1.F.p
+    r = Fr.p
+    G = (1, 2)
+    n = 1 << KZG_LOG_N
+    rng = np.random.default_rng(SEED)
+    tau = int.from_bytes(rng.bytes(40), "little") % r
+    z = int.from_bytes(rng.bytes(40), "little") % r
+    w = rng.integers(0, 1 << 32, size=(Fr.W, n), dtype=np.uint32)
+    w[-1] &= (1 << (Fr.spec.bits - 1 - 32 * (Fr.W - 1))) - 1  # below 2^253 < r
+    coeffs = limbs.words_to_ints(w)
+    coeffs_std = torch.from_numpy(w.view(np.int32)).to(device)
+    msgs = [int.from_bytes(rng.bytes(40), "little") % r for _ in range(64)]
+    blind = int.from_bytes(rng.bytes(40), "little") % r
+    msgs_std = limbs.from_ints(msgs, Fr.W, device)
+    steps = {}
+
+    def timed(name, fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        steps[name] = {"ms": round(start.elapsed_time(end), 4),
+                       "host_s": round(time.perf_counter() - t0, 4)}
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    params = timed("unsafe_setup", lambda: kzg.unsafe_setup(n, tau, device))
+    coeffs_mont = timed("to_mont", lambda: mont.to_mont(Fr.spec, coeffs_std))
+    c_commit = timed("commit", lambda: kzg.to_int_point(kzg.commit(params, coeffs_std)))
+    evals_std = timed("fft", lambda: mont.mont_reduce(
+        Fr.spec, Radix2Domain(Fr, n).fft(coeffs_mont)))
+    c_lagrange = timed("commit_lagrange",
+                       lambda: kzg.to_int_point(kzg.commit_lagrange(params, evals_std)))
+    proof = timed("open_at", lambda: kzg.open_at(params, coeffs_mont, z))
+    c_naive = timed("commit_64_naive",
+                    lambda: kzg.to_int_point(kzg.commit(params, coeffs_std[:, :64])))
+    ped = timed("pedersen_setup_64",
+                lambda: pedersen.setup(g1, 64, np.random.default_rng(SEED + 1)))
+    c_ped = timed("pedersen_commit_64",
+                  lambda: kzg.to_int_point(pedersen.commit(g1, ped, msgs_std, blind)))
+    launches = read_launches(tuple(KERNELS))
+    peak = torch.cuda.max_memory_allocated()
+
+    t0 = time.perf_counter()
+    ok = kzg.verify(params, c_commit, z, proof)
+    tampered = kzg.verify(params, c_commit, z, kzg.KZGProof((proof.value + 1) % r, proof.pi))
+    verify_s = time.perf_counter() - t0
+
+    # host-exact checks
+    t0 = time.perf_counter()
+    idx = rng.choice(n, KZG_SAMPLES, replace=False)
+    idx[:2] = (0, n - 1)
+    omega = Fr.spec.root_of_unity(n)
+    z_tau = (pow(tau, n, r) - 1) % r
+    want_pow = [host_ec.scalar_mul(G, pow(tau, int(i), r), 0, P) for i in idx]
+    want_lag = []
+    for i in idx:
+        wi = pow(omega, int(i), r)
+        li = z_tau * wi * pow(n * (tau - wi) % r, r - 2, r) % r
+        want_lag.append(host_ec.scalar_mul(G, li, 0, P))
+    if sampled_points(g1, params.g1_powers, idx) != want_pow:
+        raise AssertionError("KZG setup: sampled [tau^i]G differ from host ints")
+    if sampled_points(g1, params.g1_lagrange, idx) != want_lag:
+        raise AssertionError("KZG setup: sampled [L_i(tau)]G differ from host ints")
+    want_commit = host_ec.scalar_mul(G, horner(coeffs, tau, r), 0, P)
+    if not c_commit == c_lagrange == want_commit:
+        raise AssertionError(f"KZG commit {c_commit} / commit_lagrange {c_lagrange} "
+                             f"!= [p(tau)]G {want_commit}")
+    if proof.value != horner(coeffs, z, r):
+        raise AssertionError("KZG open: value != p(z)")
+    if ok is not True or tampered is not False:
+        raise AssertionError(f"KZG verify: {ok} on the proof, {tampered} on value + 1")
+    if c_naive != host_ec.scalar_mul(G, horner(coeffs[:64], tau, r), 0, P):
+        raise AssertionError("KZG commit of 64 coefficients (naive MSM) differs from host")
+    seeds = np.random.default_rng(SEED + 1)
+    s = [int.from_bytes(seeds.bytes(40), "little") % r for _ in range(65)]
+    k_ped = (sum(m * si for m, si in zip(msgs, s)) + blind * s[64]) % r
+    if c_ped != host_ec.scalar_mul(G, k_ped, 0, P):
+        raise AssertionError("Pedersen commit differs from host")
+    host_s = time.perf_counter() - t0
+    log(f"[kzg] bn254 n=2^{KZG_LOG_N} verified=True srs_samples={2 * KZG_SAMPLES} "
+        f"verify_s={verify_s:.3f} host_checks_s={host_s:.3f} peak_mem_bytes={peak} "
+        f"steps={json.dumps(steps)} launches={json.dumps(launches)}")
+    return launches
+
+
+def sass_word_products() -> dict:
+    """IMAD.WIDE instructions per kernel in the built library's SASS (one
+    per 32x32 -> 64-bit word product), when cuobjdump is there."""
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return {}
+    lib = _build.BUILD / _build.build_key() / "libtachyon_kernels.so"
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name and "IMAD.WIDE" in line:
+            counts[name] += 1
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one GPU", file=sys.stderr)
@@ -277,8 +504,12 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
+    clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    clock_hz = float(clk) * 1e6
     log(f"[device] {torch.cuda.get_device_name(0)} count={torch.cuda.device_count()} "
-        f"torch={torch.__version__} cuda={torch.version.cuda}")
+        f"torch={torch.__version__} cuda={torch.version.cuda} clocks.max.sm={clk} MHz")
 
     t0 = time.perf_counter()
     _build.library()
@@ -286,21 +517,33 @@ def main() -> int:
     for line in _build.nvcc_log().splitlines():
         if "entry function" in line or "registers" in line or "spill" in line:
             log(f"[ptxas] {line.strip()}")
+    sass = sass_word_products()
+    for fn, cnt in sass.items():
+        log(f"[sass] {cnt} IMAD.WIDE in {fn}")
+    # K1's kernel is one field multiply
+    mm = next((c for fn, c in sass.items() if "mont_mul_kernel" in fn), WORD_PRODUCTS)
+    log(f"[bound] {mm} multiply-adds per field multiply, {IMAD_PER_CLK_SM} per clock per SM "
+        f"x {SMS} SMs x {clock_hz / 1e6:.0f} MHz; {HBM_BYTES_PER_S / 1e12} TB/s")
 
     rng = np.random.default_rng(SEED)
     _, base_x, base_y = base_points(curves.bn254_g1(device), rng)
     results: dict = {}
-    phase_kernels(device, base_x, base_y, results)
+    phase_kernels(device, base_x, base_y, clock_hz, mm, results)
     torch.cuda.empty_cache()
-    launches = phase_slice(device)
+    msm_launches = phase_slice(device)
+    torch.cuda.empty_cache()
+    kzg_launches = phase_kzg(device)
 
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():
         r = results[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": r["max_abs_err"],
-                        "ms": r["ms"], "plain_ms": r["plain_ms"], "shape": r["shape"],
-                        "plain_shape": r["plain_shape"]})
+                        "launches": kzg_launches[name], "max_abs_err": r["max_abs_err"],
+                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": None,
+                        "launches_by_path": {f"msm_2^{LOG_N}": msm_launches[name],
+                                             f"kzg_2^{KZG_LOG_N}": kzg_launches[name]},
+                        "shape": r["shape"], "plain_shape": r["plain_shape"]})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

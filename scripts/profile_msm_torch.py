@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Profile the PyTorch/CUDA port's BN254 G1 MSM (msm + to_affine) on one GPU.
+"""Profile the PyTorch/CUDA port's BN254 paths on one GPU with torch.profiler.
 
-    python3 scripts/profile_msm_torch.py [--log-n 22] [--out chiprun_out]
+    python3 scripts/profile_msm_torch.py [--log-n 22] [--kzg-log-n 20] [--out DIR]
 
-Builds the kernels, makes chip_smoke.py's 2^log_n point set, warms up once,
-then traces one run with torch.profiler.  Prints the device time by kernel
-name, the device busy and idle shares of the traced window, and writes the
-Chrome trace to <out>/msm_trace.json.  Needs CUDA; imports no JAX.
+Builds the kernels, then traces, each after one warm-up run:
+- the G1 MSM (msm + to_affine) on chip_smoke.py's 2^log_n point set;
+- the KZG unsafe setup at 2^kzg_log_n;
+- one KZG commit (msm + to_affine) of 2^kzg_log_n coefficients.
+For each it prints the device time by kernel name and the device busy and
+idle shares of the traced window, and writes the Chrome trace to
+<out>/<name>_trace.json.  Needs CUDA; imports no JAX.
 """
 from __future__ import annotations
 
@@ -21,31 +24,14 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import chip_smoke  # noqa: E402
+from tachyon_tpu_torch.crypto import kzg  # noqa: E402
 from tachyon_tpu_torch.math import curves  # noqa: E402
 from tachyon_tpu_torch.math.msm import msm  # noqa: E402
 from tachyon_tpu_torch.ops import _build  # noqa: E402
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--log-n", type=int, default=22)
-    ap.add_argument("--out", default="chiprun_out")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("profile_msm_torch: no CUDA device", file=sys.stderr)
-        return 1
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip()
-    print(f"[device] {card}")
-    _build.library()
-    device = torch.device("cuda", 0)
-    curve = curves.bn254_g1(device)
-    points, scalars, _, _ = chip_smoke.slice_inputs(curve, 1 << args.log_n)
-
-    def run():
-        return curve.to_affine(msm(curve, points, scalars))
-
+def profile(name: str, run, out: Path) -> None:
+    """Warm up once, then trace one run of ``run``."""
     run()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -59,16 +45,46 @@ def main() -> int:
                   if e.device_time_total > 0 and e.device_type == torch.autograd.DeviceType.CUDA),
                  key=lambda t: -t[1])
     busy_us = sum(t for _, t, _ in dev)
-    print(f"[profile] n=2^{args.log_n} wall_s={wall:.4f} device_busy_s={busy_us / 1e6:.4f} "
-          f"idle_share={1 - busy_us / 1e6 / wall:.3f}")
-    for name, t, cnt in dev[:25]:
-        print(f"[kernel-time] {t / 1e3:10.3f} ms  {100 * t / busy_us:5.1f}%  x{cnt:<6d} {name[:90]}")
-    out = Path(args.out)
+    print(f"[profile] {name} wall_s={wall:.4f} device_busy_s={busy_us / 1e6:.4f} "
+          f"idle_share={1 - busy_us / 1e6 / wall:.3f} launches={sum(c for _, _, c in dev)}")
+    for key, t, cnt in dev[:20]:
+        print(f"[kernel-time] {t / 1e3:10.3f} ms  {100 * t / busy_us:5.1f}%  x{cnt:<6d} {key[:90]}")
     out.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out / "msm_trace.json"))
-    cpu = sorted(events, key=lambda e: -e.self_cpu_time_total)[:12]
+    prof.export_chrome_trace(str(out / f"{name}_trace.json"))
+    cpu = sorted(events, key=lambda e: -e.self_cpu_time_total)[:10]
     for e in cpu:
         print(f"[host-op] {e.self_cpu_time_total / 1e3:10.3f} ms self x{e.count:<6d} {e.key[:70]}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--log-n", type=int, default=22)
+    ap.add_argument("--kzg-log-n", type=int, default=20)
+    ap.add_argument("--out", default="chiprun_out")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_msm_torch: no CUDA device", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip()
+    print(f"[device] {card}")
+    _build.library()
+    device = torch.device("cuda", 0)
+    out = Path(args.out)
+    curve = curves.bn254_g1(device)
+    points, scalars, _, _ = chip_smoke.slice_inputs(curve, 1 << args.log_n)
+    profile(f"msm_2^{args.log_n}", lambda: curve.to_affine(msm(curve, points, scalars)), out)
+    del points, scalars
+    torch.cuda.empty_cache()
+
+    n = 1 << args.kzg_log_n
+    params = {}
+    profile(f"kzg_setup_2^{args.kzg_log_n}",
+            lambda: params.update(p=kzg.unsafe_setup(n, 0x1234567, device)), out)
+    coeffs = torch.randint(0, 1 << 29, (8, n), dtype=torch.int32, device=device)
+    profile(f"kzg_commit_2^{args.kzg_log_n}",
+            lambda: kzg.to_int_point(kzg.commit(params["p"], coeffs)), out)
     return 0
 
 

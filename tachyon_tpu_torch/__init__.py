@@ -2,8 +2,10 @@
 
 The JAX package ``tachyon_tpu`` stays the reference.  This package runs the
 same algorithms on PyTorch tensors, with every TPU (Pallas) kernel on the
-ported path rewritten as a hand-written CUDA kernel for Hopper (sm_90a).
+ported paths rewritten as a hand-written CUDA kernel for Hopper (sm_90a).
 
-It imports ``torch`` and never ``jax``; of ``tachyon_tpu`` it uses only the
-jax-free ``tachyon_tpu.fields.spec`` and ``tachyon_tpu.fields.presets``.
+It imports ``torch`` and never ``jax``, and nothing of ``tachyon_tpu``: it
+keeps its own copies of the jax-free modules it needs (``fields/spec.py``,
+``fields/presets.py``, ``math/pairing_bn254.py``).  Its entry points put
+their tensors on the card unless the caller passes another device.
 """

@@ -1,7 +1,14 @@
-// K2 (complete XYZZ add) and K3 (XYZZ double), one thread per point.
-// Replace tachyon_tpu/ops/pallas_ec.py _add_call (pl.pallas_call at :209) and
-// _dbl_call (pl.pallas_call at :232).  Each coordinate is a (W, n) word-major
-// int32 array holding uint32 words.
+// K2 (complete XYZZ add), K3 (XYZZ double) and K4 (complete mixed add XYZZ +
+// affine), one thread per point.  Replace tachyon_tpu/ops/pallas_ec.py
+// _add_call (pl.pallas_call at :209), _dbl_call (pl.pallas_call at :232) and
+// _madd_call (pl.pallas_call at :257).  Each coordinate is a (W, n)
+// word-major int32 array holding uint32 words.
+//
+// K4 is bound by integer multiplies: a madd is 10 field multiplies (19 on
+// the lanes that double), each 2W^2 + W = 136 word products at W = 8,
+// against 6 x 32 + 4 bytes read and 4 x 32 written per point.  One thread
+// keeps a point in registers, as in K2.  The TPU kernel pads the batch to
+// whole blocks with q_inf = 1; here a bounds check ends the ragged block.
 #include <cuda_runtime.h>
 
 #include "xyzz.cuh"
@@ -32,6 +39,24 @@ __global__ void dbl_xyzz_kernel(const uint32_t* __restrict__ px, const uint32_t*
   Xyzz<W> p;
   xyzz_load<W>(p, px, py, pzz, pzzz, n, k);
   Xyzz<W> o = xyzz_dbl<W>(p, f);
+  xyzz_store<W>(ox, oy, ozz, ozzz, n, k, o);
+}
+
+template <int W>
+__global__ void madd_xyzz_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
+                                 const uint32_t* __restrict__ pzz,
+                                 const uint32_t* __restrict__ pzzz,
+                                 const uint32_t* __restrict__ qx, const uint32_t* __restrict__ qy,
+                                 const int32_t* __restrict__ qinf, uint32_t* ox, uint32_t* oy,
+                                 uint32_t* ozz, uint32_t* ozzz, int64_t n, FieldConst<W> f) {
+  int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n) return;
+  Xyzz<W> p;
+  uint32_t ax[W], ay[W];
+  xyzz_load<W>(p, px, py, pzz, pzzz, n, k);
+  fp_load<W>(ax, qx, n, k);
+  fp_load<W>(ay, qy, n, k);
+  Xyzz<W> o = xyzz_madd<W>(p, ax, ay, qinf[k] != 0, f);
   xyzz_store<W>(ox, oy, ozz, ozzz, n, k, o);
 }
 
@@ -69,6 +94,25 @@ extern "C" cudaError_t tt_dbl_xyzz(const void* px, const void* py, const void* p
       dbl_xyzz_kernel<8><<<(unsigned)blocks, threads, 0, s>>>(
           U32C(px), U32C(py), U32C(pzz), U32C(pzzz), U32(ox), U32(oy), U32(ozz), U32(ozzz), n,
           load_consts<8>(consts));
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t tt_madd_xyzz(const void* px, const void* py, const void* pzz,
+                                    const void* pzzz, const void* qx, const void* qy,
+                                    const void* qinf, void* ox, void* oy, void* ozz, void* ozzz,
+                                    int64_t n, const uint32_t* consts, int W, void* stream) {
+  const int threads = 128;
+  const int64_t blocks = (n + threads - 1) / threads;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (W) {
+    case 8:
+      madd_xyzz_kernel<8><<<(unsigned)blocks, threads, 0, s>>>(
+          U32C(px), U32C(py), U32C(pzz), U32C(pzzz), U32C(qx), U32C(qy), (const int32_t*)qinf,
+          U32(ox), U32(oy), U32(ozz), U32(ozzz), n, load_consts<8>(consts));
       break;
     default:
       return cudaErrorInvalidValue;

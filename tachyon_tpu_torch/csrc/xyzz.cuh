@@ -1,7 +1,7 @@
 // XYZZ point formulas (short Weierstrass, a = 0) for one point per thread.
 //
-// Port of the bodies in tachyon_tpu/ops/pallas_ec.py (_dbl_body, _add_body)
-// and tachyon_tpu/ops/pallas_msm.py (_madd_blinded, _add_blinded), with the
+// Port of the bodies in tachyon_tpu/ops/pallas_ec.py (_dbl_body, _add_body,
+// _madd_body) and tachyon_tpu/ops/pallas_msm.py (_madd_blinded, _add_blinded), with the
 // same formulas and the same order of case selection, so that results are
 // bit-identical to the JAX package's.  Infinity is zz == 0 (all-zero
 // coordinates).
@@ -116,6 +116,53 @@ __device__ __forceinline__ Xyzz<W> xyzz_add(const Xyzz<W>& p, const Xyzz<W>& q,
   if (is_dbl) o = xyzz_dbl<W>(p, f);
   xyzz_select<W>(o, q_inf, p);
   xyzz_select<W>(o, p_inf, q);
+  return o;
+}
+
+// Complete madd-2008-s (q affine, q_inf its flag).  The selects run in the
+// JAX order: P = -Q -> infinity, P = Q -> dbl, q = inf -> p, and last p = inf
+// -> q lifted with zz = zzz = mont(1), all-zero when q is infinity as well.
+// The double is computed only on the lanes that take it.
+template <int W>
+__device__ __forceinline__ Xyzz<W> xyzz_madd(const Xyzz<W>& p, const uint32_t qx[W],
+                                             const uint32_t qy[W], bool q_inf,
+                                             const FieldConst<W>& f) {
+  uint32_t u2[W], s2[W], pp[W], r[W], pp2[W], ppp[W];
+  Xyzz<W> o;
+  fp_mul<W>(u2, qx, p.zz, f);
+  fp_mul<W>(s2, qy, p.zzz, f);
+  fp_sub<W>(pp, u2, p.x, f);
+  fp_sub<W>(r, s2, p.y, f);
+  bool same_x = fp_is_zero<W>(pp);
+  bool same_y = fp_is_zero<W>(r);
+  xyzz_add_tail<W>(o, p.x, p.y, pp, r, pp2, ppp, f);
+  fp_mul<W>(o.zz, p.zz, pp2, f);
+  fp_mul<W>(o.zzz, p.zzz, ppp, f);
+
+  bool p_inf = fp_is_zero<W>(p.zz);
+  bool is_dbl = same_x && same_y && !p_inf && !q_inf;
+  bool is_inf = same_x && !same_y && !p_inf && !q_inf;
+  if (is_inf) {
+    fp_zero<W>(o.x);
+    fp_zero<W>(o.y);
+    fp_zero<W>(o.zz);
+    fp_zero<W>(o.zzz);
+  }
+  if (is_dbl) o = xyzz_dbl<W>(p, f);
+  if (q_inf) o = p;
+  if (p_inf) {
+    if (q_inf) {
+      fp_zero<W>(o.x);
+      fp_zero<W>(o.y);
+      fp_zero<W>(o.zz);
+      fp_zero<W>(o.zzz);
+    } else {
+      fp_copy<W>(o.x, qx);
+      fp_copy<W>(o.y, qy);
+      fp_copy<W>(o.zz, f.one);
+      fp_copy<W>(o.zzz, f.one);
+    }
+  }
   return o;
 }
 

@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tachyon_tpu.fields.spec import FieldSpec
+from tachyon_tpu_torch.fields.spec import FieldSpec
 
 WORD_BITS = 32
 WORD_MASK = (1 << WORD_BITS) - 1
@@ -85,12 +85,40 @@ def xyzz_to_jax(p) -> tuple:
     return tuple(to_jax_limbs(t) for t in p)
 
 
+def ints_to_words(xs, W: int) -> np.ndarray:
+    """Python ints in [0, 2^(32 W)) -> (W, n) uint32 words, in one step:
+    the ints' little-endian bytes joined and read by ``np.frombuffer``."""
+    buf = b"".join(int(x).to_bytes(4 * W, "little") for x in xs)
+    return np.frombuffer(buf, dtype="<u4").reshape(-1, W).T.copy()
+
+
+def from_ints(xs, W: int, device=None) -> torch.Tensor:
+    """Python ints in [0, 2^(32 W)) -> (W, n) int32 plain words."""
+    return torch.from_numpy(ints_to_words(xs, W).view(np.int32)).to(device)
+
+
+def words_to_ints(w: np.ndarray) -> list:
+    """(W, n) uint32 words -> n Python ints."""
+    W = w.shape[0]
+    buf = np.ascontiguousarray(w.T, dtype="<u4").tobytes()
+    return [int.from_bytes(buf[i:i + 4 * W], "little") for i in range(0, len(buf), 4 * W)]
+
+
 def encode(f: FieldSpec, xs, device=None) -> torch.Tensor:
-    """Python ints -> Montgomery words (W, *shape)."""
-    return from_jax_limbs(f.encode(xs), device)
+    """Python ints -> Montgomery words (W, *shape), equal to the words of
+    ``f.encode`` (x mod p times R mod p), vectorised over the ints."""
+    arr = np.asarray(xs, dtype=object)
+    W = word_count(f)
+    mont = [int(x) % f.p * f.R % f.p for x in arr.reshape(-1)]
+    return from_ints(mont, W, device).reshape((W,) + arr.shape)
 
 
 def decode(f: FieldSpec, t: torch.Tensor) -> np.ndarray:
     """Montgomery words -> object ndarray of Python ints."""
-    return f.decode(to_jax_limbs(t))
+    w = t.detach().cpu().contiguous().numpy().view(np.uint32)
+    r_inv = pow(f.R, -1, f.p)
+    vals = [v * r_inv % f.p for v in words_to_ints(w.reshape(w.shape[0], -1))]
+    out = np.empty(len(vals), dtype=object)
+    out[:] = vals
+    return out.reshape(w.shape[1:])
 

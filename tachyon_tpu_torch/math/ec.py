@@ -5,16 +5,18 @@ Port of ``tachyon_tpu/math/ec.py`` for prime-field curves with a = 0
 ``(W, *batch)`` int32 word tensors.  XYZZ is the accumulation form:
 x = X/ZZ, y = Y/ZZZ; infinity is ZZ == 0 (all-zero coordinates).
 
-``add_xyzz`` / ``dbl_xyzz`` launch the CUDA kernels K2 / K3 on CUDA
-tensors and their plain twins on CPU tensors (``ops/cuda_ec.py``).  The
-mixed add, ``scalar_mul`` and ``random_affine`` arrive with K4.
+``add_xyzz`` / ``dbl_xyzz`` / ``madd_xyzz`` launch the CUDA kernels K2 /
+K3 / K4 on CUDA tensors and their plain twins on CPU tensors
+(``ops/cuda_ec.py``).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from tachyon_tpu_torch.fields import limbs
 from tachyon_tpu_torch.math.field import _shape
 from tachyon_tpu_torch.ops import cuda_ec
 
@@ -108,6 +110,9 @@ class SWCurve:
     def add_xyzz(self, p: PointXYZZ, q: PointXYZZ) -> PointXYZZ:
         return PointXYZZ(*cuda_ec.add_xyzz(self.F.spec, tuple(p), tuple(q)))
 
+    def madd_xyzz(self, p: PointXYZZ, q: AffinePoint) -> PointXYZZ:
+        return PointXYZZ(*cuda_ec.madd_xyzz(self.F.spec, tuple(p), q.x, q.y, q.inf))
+
     def _dbl_xyzz_plain(self, p: PointXYZZ) -> PointXYZZ:
         """dbl-2008-s-1 in plain tensor ops; infinity propagates (zz = 0)."""
         return PointXYZZ(*cuda_ec.dbl_xyzz_plain(self.F.spec, tuple(p)))
@@ -115,3 +120,34 @@ class SWCurve:
     def _add_xyzz_plain(self, p: PointXYZZ, q: PointXYZZ) -> PointXYZZ:
         """add-2008-s in plain tensor ops with complete case handling."""
         return PointXYZZ(*cuda_ec.add_xyzz_plain(self.F.spec, tuple(p), tuple(q)))
+
+    # --- scalar multiplication (the MSM is in msm.py) -------------------------
+    def scalar_mul(self, p: AffinePoint, scalars: torch.Tensor) -> PointXYZZ:
+        """[s]P lane by lane: an MSB-first double-and-add over all Ws * 32
+        bits of the scalar words, from infinity.  Every step is a dbl (K3),
+        a mixed add (K4) and a select on the bit, with no bit skipped, so
+        the XYZZ words equal the JAX package's ``lax.scan``.
+
+        scalars: (Ws, *batch) plain (non-Montgomery) int32 scalar words."""
+        F = self.F
+        q = AffinePoint(p.x.contiguous(), p.y.contiguous(), p.inf.contiguous())
+        nbits = scalars.shape[0] * limbs.WORD_BITS
+        acc = self.infinity_xyzz(p.inf.shape)
+        for i in range(nbits):
+            b = nbits - 1 - i
+            bit = ((scalars[b // limbs.WORD_BITS] >> (b % limbs.WORD_BITS)) & 1) != 0
+            acc = self.dbl_xyzz(acc)
+            added = self.madd_xyzz(acc, q)
+            acc = PointXYZZ(*(F.select(bit, a, c) for a, c in zip(added, acc)))
+        return acc
+
+    def random_affine(self, n: int, rng=None):
+        """n pseudo-random curve points [s_i]G, with the s_i drawn as the JAX
+        package draws them (``rng.bytes(40)`` each, mod the group order)."""
+        rng = rng or np.random.default_rng()
+        SF = self.SF
+        scalars = np.empty((n,), dtype=object)
+        for i in range(n):
+            scalars[i] = int.from_bytes(rng.bytes(40), "little") % SF.p
+        pts = self.scalar_mul(self.generator((n,)), limbs.from_ints(scalars, SF.W, self.device))
+        return self.to_affine(pts), scalars

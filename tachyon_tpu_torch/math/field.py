@@ -9,7 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tachyon_tpu.fields.spec import FieldSpec
+from tachyon_tpu_torch.fields.spec import FieldSpec
 from tachyon_tpu_torch.fields import limbs
 from tachyon_tpu_torch.ops import mont
 
@@ -19,9 +19,15 @@ def _shape(shape) -> tuple:
 
 
 class PrimeField:
-    def __init__(self, spec: FieldSpec, device="cpu"):
+    """A prime field on one device: the card unless the caller passes
+    another; on a host without CUDA the default raises."""
+
+    def __init__(self, spec: FieldSpec, device=torch.device("cuda")):
         self.spec = spec
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"{spec.name}: no CUDA device; pass device='cpu' "
+                               "to run the plain PyTorch path on the CPU")
 
     @property
     def W(self) -> int:
@@ -53,6 +59,16 @@ class PrimeField:
         s = _shape(shape)
         v = self.encode(value % self.p)
         return v.reshape((self.W,) + (1,) * len(s)).expand(self.W, *s).contiguous()
+
+    def powers(self, base: int, count: int):
+        """(W, count) table of base^i for i < count, by log-doubling: each
+        step appends the table times the next square of base."""
+        tab = self.ones((1,))
+        cur = self.encode(base % self.p)[:, None]
+        while tab.shape[-1] < count:
+            tab = torch.cat([tab, self.mul(tab, cur)], dim=-1)
+            cur = self.square(cur)
+        return tab[:, :count].contiguous()
 
     def encode(self, xs):
         """host Python ints -> Montgomery words (W, *shape) on the device."""

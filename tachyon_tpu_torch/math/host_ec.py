@@ -4,12 +4,17 @@ The port's counterpart of the JAX package's test helpers
 (``tests/test_ec.py`` ``py_add``/``py_mul``, ``math/msm.py``
 ``_host_point_mul``/``msm_host_reference``): affine add, scalar multiple,
 an exact MSM, the MSM of a tiled point set (what ``chip_smoke.py`` checks
-the 2^22 MSM against), and the blind-point derivation of the sweeps.
-A point is an ``(x, y)`` tuple of ints, or None for infinity.
+the 2^22 MSM against), and the blind-point derivation of the sweeps;
+and the BN254 G2 add and scalar multiple that KZG's ``verify`` takes
+(the JAX package's ``zk/groth16/prover.py`` ``_py_g2_add``/``_py_g2_mul``).
+A point is an ``(x, y)`` tuple of ints (of Fq2 pairs for G2), or None for
+infinity.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from tachyon_tpu_torch.math import pairing_bn254 as pairing
 
 BLIND_SEED = b"tachyon-tpu-msm-blind-0001"  # the JAX package's _blind_points seed
 
@@ -76,3 +81,33 @@ def blind_points(gen, a: int, mod: int, order: int):
         k = int.from_bytes(rng.bytes(40), "little") % order
         pts.append(scalar_mul(gen, k, a, mod))
     return pts
+
+
+def g2_add(p, q):
+    """Affine add on BN254 G2 (coordinates in Fq2)."""
+    f = pairing
+    if p is None:
+        return q
+    if q is None:
+        return p
+    x1, y1 = p
+    x2, y2 = q
+    if x1 == x2 and f.f2_add(y1, y2) == (0, 0):
+        return None
+    if p == q:
+        lam = f.f2_mul(f.f2_muls(f.f2_sq(x1), 3), f.f2_inv(f.f2_muls(y1, 2)))
+    else:
+        lam = f.f2_mul(f.f2_sub(y2, y1), f.f2_inv(f.f2_sub(x2, x1)))
+    x3 = f.f2_sub(f.f2_sub(f.f2_sq(lam), x1), x2)
+    return (x3, f.f2_sub(f.f2_mul(lam, f.f2_sub(x1, x3)), y1))
+
+
+def g2_mul(p, k: int):
+    """[k]P on BN254 G2 by double-and-add."""
+    acc, add = None, p
+    while k:
+        if k & 1:
+            acc = g2_add(acc, add)
+        add = g2_add(add, add)
+        k >>= 1
+    return acc

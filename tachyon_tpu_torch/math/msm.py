@@ -10,6 +10,8 @@ pos_b = searchsorted(d_sorted, b).  Per window: one stable sort, a gather
 into C lanes x R rows, the K5 sweep (per-lane suffix sums from a blind D),
 a Hillis-Steele scan of the lane totals (K2), the T-gather at the bucket
 starts (K2), the K6 sweep and a fold (K2); Horner across windows (K3, K2).
+As in the JAX package, n <= 128 takes the naive path instead: a batched
+double-and-add (``scalar_mul``: K3, K4) and a tree reduce (K2).
 
 The XLA steps that are not Pallas kernels map to PyTorch calls:
 ``lax.sort_key_val`` -> ``torch.sort(stable=True)``, ``jnp.take`` ->
@@ -165,6 +167,30 @@ def _window_sum(curve: SWCurve, packed, dw, C, R, B, blind1, blind2) -> PointXYZ
     return _fold_reduce_lanes(curve, red)
 
 
+def _tree_reduce(curve: SWCurve, pts: PointXYZZ, axis_len: int) -> PointXYZZ:
+    """Sum a vector of axis_len XYZZ points (last axis) to one point: pad
+    with infinity to a power of two, then add halves (K2)."""
+    m = 1 << max(axis_len - 1, 0).bit_length()
+    if m != axis_len:
+        pts = PointXYZZ(*(torch.nn.functional.pad(t, (0, m - axis_len)) for t in pts))
+    while m > 1:
+        half = m // 2
+        pts = curve.add_xyzz(PointXYZZ(*(t[..., :half].contiguous() for t in pts)),
+                             PointXYZZ(*(t[..., half:].contiguous() for t in pts)))
+        m = half
+    return PointXYZZ(*(t[..., 0].contiguous() for t in pts))
+
+
+def _msm_naive(curve: SWCurve, points: AffinePoint, scalars: torch.Tensor) -> PointXYZZ:
+    """Small-n MSM: a batched double-and-add (``scalar_mul``, K3 + K4) and a
+    tree reduce."""
+    n = scalars.shape[1]
+    return _tree_reduce(curve, curve.scalar_mul(points, scalars), n)
+
+
+MSM_NAIVE_THRESHOLD = 128
+
+
 def _layout_and_blinds(curve: SWCurve, n: int):
     """The (R, C) sweep layout for n points, and the blind points."""
     C = 4096 if n >= (1 << 15) else 512
@@ -180,10 +206,8 @@ def msm(curve: SWCurve, points: AffinePoint, scalars: torch.Tensor,
     words of the scalar field.  total_bits overrides the scalar bit width.
     """
     n = scalars.shape[1]
-    # Every n takes the sweep path.  The JAX package sends n <= 128 to a
-    # naive double-and-add (`_msm_naive`), which needs scalar_mul and the
-    # mixed-add kernel K4; both arrive in a later port step.  The sweep path
-    # is exact at small n too (the JAX tests run it at n = 300, c = 10).
+    if n <= MSM_NAIVE_THRESHOLD:
+        return _msm_naive(curve, points, scalars)
     total_bits = total_bits or curve.SF.spec.bits
     c = c or optimal_window_bits(total_bits, n)
     B = 1 << c

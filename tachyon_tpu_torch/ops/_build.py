@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` into one shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds):
+Every ``csrc/*.cu`` is compiled by its own ``nvcc``, all started together,
+and the objects are linked into one shared library with a plain C interface
+(no PyTorch headers, so a build takes seconds):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o libtachyon_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c -o <src>.o csrc/<src>.cu     # one per source
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o libtachyon_kernels.so *.o
 
 The library lands in ``tachyon_tpu_torch/_build/<key>/``, where the key
 hashes the sources and the flags, so a rerun on unchanged sources loads the
@@ -23,8 +25,8 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # (name, argtypes) of every extern "C" launcher; each returns cudaError_t
 _P = ctypes.c_void_p
@@ -33,6 +35,7 @@ LAUNCHERS = {
     "tt_mont_mul": [_P, _P, _P, _I64, _P, ctypes.c_int, _P],
     "tt_add_xyzz": [_P] * 12 + [_I64, _P, ctypes.c_int, _P],
     "tt_dbl_xyzz": [_P] * 8 + [_I64, _P, ctypes.c_int, _P],
+    "tt_madd_xyzz": [_P] * 11 + [_I64, _P, ctypes.c_int, _P],
     "tt_suffix_sweep": [_P] * 11 + [_I64, _I64, _P, ctypes.c_int, _P],
     "tt_reduce_sweep": [_P] * 12 + [_I64, _I64, _P, ctypes.c_int, _P],
 }
@@ -67,13 +70,32 @@ def library() -> ctypes.CDLL:
     lib_path = out_dir / "libtachyon_kernels.so"
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libtachyon_kernels.{os.getpid()}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in sorted(CSRC.glob("*.cu")))]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        (out_dir / "nvcc.log").write_text(r.stdout + r.stderr)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
+        nvcc, tag = _nvcc(), os.getpid()
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = out_dir / f"{src.stem}.{tag}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for obj, proc in jobs:
+            out, _ = proc.communicate()
+            logs.append(out)
+            if proc.returncode != 0:
+                failed.append(f"{obj.name} ({proc.returncode})")
+        tmp = out_dir / f"libtachyon_kernels.{tag}.so"
+        if not failed:
+            r = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                                *(str(obj) for obj, _ in jobs)],
+                               capture_output=True, text=True)
+            logs.append(r.stdout + r.stderr)
+            if r.returncode != 0:
+                failed.append(f"link ({r.returncode})")
+        (out_dir / "nvcc.log").write_text("".join(logs))
+        for obj, _ in jobs:
+            obj.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n" + "".join(logs))
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in LAUNCHERS.items():

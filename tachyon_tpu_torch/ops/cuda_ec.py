@@ -1,4 +1,5 @@
-"""K2 and K3: whole XYZZ point add and double as hand-written CUDA kernels.
+"""K2, K3 and K4: whole XYZZ point add, double and mixed add as
+hand-written CUDA kernels.
 
 Replace the Pallas kernels of ``tachyon_tpu/ops/pallas_ec.py``:
 
@@ -7,40 +8,53 @@ Replace the Pallas kernels of ``tachyon_tpu/ops/pallas_ec.py``:
   infinity inputs pass through.
 * K3 ``_dbl_call`` (``pl.pallas_call`` at line 232, body ``_dbl_body``):
   dbl-2008-s-1, a = 0; infinity (zz = 0) propagates.
+* K4 ``_madd_call`` (``pl.pallas_call`` at line 257, body ``_madd_body``,
+  wrapper ``madd_xyzz``): complete madd-2008-s, XYZZ + affine with a q_inf
+  flag row; p = infinity gives q lifted with zz = zzz = mont(1).
 
 Kernels (``csrc/ec.cu``, ``csrc/xyzz.cuh``): one thread per point; each
 coordinate is a word-major ``(W, n)`` array so the loads of a warp coalesce.
-Bound on the card: an add is ~20 field multiplies (~3k integer multiply-adds)
-against 384 bytes moved, so it is compute-bound once there are enough points
-to fill 132 SMs; the MSM path calls it on 1 to 131k points, and below ~100k
-points it is bound by occupancy and launch latency.  The design keeps a
-whole point in registers (no shared memory) and evaluates the same formulas
-and case order as the TPU kernel, so results are bit-identical.
+Bound on the card: an add is 14 field multiplies (~1.9k word products) and a
+mixed add 10 (~1.4k) against 384 and 324 bytes moved, so both are bound by
+integer multiplies once there are enough points to fill 132 SMs; the MSM
+path calls K2 on 1 to 131k points, and below ~100k points it is bound by
+occupancy and launch latency.  ``scalar_mul`` calls K3 and K4 on every lane
+of the batch (2^20 in KZG's setup).  The design keeps a whole point in
+registers (no shared memory) and evaluates the same formulas and case order
+as the TPU kernel, so results are bit-identical.
 
-``add_xyzz_plain`` / ``dbl_xyzz_plain`` are the plain PyTorch twins (the CPU
-path, and the reference the kernels are held against on the card); they
-mirror ``SWCurve._add_xyzz_jnp`` / ``_dbl_xyzz_jnp``.
+``add_xyzz_plain`` / ``dbl_xyzz_plain`` / ``madd_xyzz_plain`` are the plain
+PyTorch twins (the CPU path, and the reference the kernels are held against
+on the card); they mirror ``SWCurve._add_xyzz_jnp`` / ``_dbl_xyzz_jnp`` /
+``_madd_xyzz_jnp``.
 """
 from __future__ import annotations
 
 import torch
 
-from tachyon_tpu.fields.spec import FieldSpec
+from tachyon_tpu_torch.fields.spec import FieldSpec
 from tachyon_tpu_torch.ops import _build, mont
 from tachyon_tpu_torch.ops.cuda_mont import check_cuda, consts_ptr
 
 
+def _muls(f: FieldSpec, *pairs):
+    """Independent Montgomery products as one multiply over a stacked batch:
+    one plain pass on the CPU, one K1 launch on the card, the same words."""
+    a = torch.stack([x for x, _ in pairs], dim=1)
+    b = torch.stack([y for _, y in pairs], dim=1)
+    return mont.mul(f, a, b).unbind(1)
+
+
 def dbl_xyzz_plain(f: FieldSpec, p):
+    """dbl-2008-s-1 (a = 0); infinity (zz = 0) propagates."""
     px, py, pzz, pzzz = p
     u = mont.double(f, py)
-    v = mont.square(f, u)
-    w = mont.mul(f, u, v)
-    s = mont.mul(f, px, v)
-    m = mont.mul_small(f, mont.square(f, px), 3)
-    x3 = mont.sub(f, mont.square(f, m), mont.double(f, s))
-    y3 = mont.sub(f, mont.mul(f, m, mont.sub(f, s, x3)), mont.mul(f, w, py))
-    zz3 = mont.mul(f, v, pzz)
-    zzz3 = mont.mul(f, w, pzzz)
+    v, x2 = _muls(f, (u, u), (px, px))
+    w, s, zz3 = _muls(f, (u, v), (px, v), (v, pzz))
+    m = mont.mul_small(f, x2, 3)
+    m2, wy, zzz3 = _muls(f, (m, m), (w, py), (w, pzzz))
+    x3 = mont.sub(f, m2, mont.double(f, s))
+    y3 = mont.sub(f, mont.mul(f, m, mont.sub(f, s, x3)), wy)
     return x3, y3, zz3, zzz3
 
 
@@ -48,37 +62,72 @@ def _pick(mask, a, b):
     return tuple(mont.select(mask, x, y) for x, y in zip(a, b))
 
 
+def _pick_dbl(f: FieldSpec, is_dbl, p, out):
+    """out with the lanes of is_dbl replaced by 2p.  The JAX twins double
+    every lane and select; the double is computed here only when some lane
+    takes it (the same words, fewer multiplies)."""
+    if not bool(is_dbl.any()):
+        return out
+    return _pick(is_dbl, dbl_xyzz_plain(f, p), out)
+
+
+def _add_tail(f: FieldSpec, u1, s1, pp, r, zz, zzz):
+    """The shared tail of add-2008-s and madd-2008-s: x3 = r^2 - ppp - 2 qq,
+    y3 = r (qq - x3) - s1 ppp, zz3 = zz pp^2, zzz3 = zzz ppp."""
+    pp2, r2 = _muls(f, (pp, pp), (r, r))
+    ppp, qq, zz3 = _muls(f, (pp, pp2), (u1, pp2), (zz, pp2))
+    x3 = mont.sub(f, mont.sub(f, r2, ppp), mont.double(f, qq))
+    t, s1ppp, zzz3 = _muls(f, (r, mont.sub(f, qq, x3)), (s1, ppp), (zzz, ppp))
+    return x3, mont.sub(f, t, s1ppp), zz3, zzz3
+
+
 def add_xyzz_plain(f: FieldSpec, p, q):
-    """add-2008-s with complete select-based case handling."""
+    """add-2008-s with complete select-based case handling; mirrors
+    ``SWCurve._add_xyzz_jnp``."""
     px, py, pzz, pzzz = p
     qx, qy, qzz, qzzz = q
-    u1 = mont.mul(f, px, qzz)
-    u2 = mont.mul(f, qx, pzz)
-    s1 = mont.mul(f, py, qzzz)
-    s2 = mont.mul(f, qy, pzzz)
+    u1, u2, s1, s2, zz, zzz = _muls(f, (px, qzz), (qx, pzz), (py, qzzz), (qy, pzzz),
+                                    (pzz, qzz), (pzzz, qzzz))
     pp = mont.sub(f, u2, u1)
     r = mont.sub(f, s2, s1)
     same_x = mont.is_zero(f, pp)
     same_y = mont.is_zero(f, r)
-    pp2 = mont.square(f, pp)
-    ppp = mont.mul(f, pp, pp2)
-    qq = mont.mul(f, u1, pp2)
-    x3 = mont.sub(f, mont.sub(f, mont.square(f, r), ppp), mont.double(f, qq))
-    y3 = mont.sub(f, mont.mul(f, r, mont.sub(f, qq, x3)), mont.mul(f, s1, ppp))
-    zz3 = mont.mul(f, mont.mul(f, pzz, qzz), pp2)
-    zzz3 = mont.mul(f, mont.mul(f, pzzz, qzzz), ppp)
-    out = (x3, y3, zz3, zzz3)
+    out = _add_tail(f, u1, s1, pp, r, zz, zzz)
 
-    dbl = dbl_xyzz_plain(f, p)
     p_inf = mont.is_zero(f, pzz)
     q_inf = mont.is_zero(f, qzz)
     is_dbl = same_x & same_y & ~p_inf & ~q_inf
     is_inf = same_x & ~same_y & ~p_inf & ~q_inf
-    zero = torch.zeros_like(x3)
+    zero = torch.zeros_like(pp)
     out = _pick(is_inf, (zero,) * 4, out)
-    out = _pick(is_dbl, dbl, out)
+    out = _pick_dbl(f, is_dbl, p, out)
     out = _pick(q_inf, p, out)
     out = _pick(p_inf, q, out)
+    return out
+
+
+def madd_xyzz_plain(f: FieldSpec, p, qx, qy, q_inf):
+    """madd-2008-s (mixed add, q affine, q_inf bool) with complete case
+    handling; mirrors ``SWCurve._madd_xyzz_jnp``."""
+    px, py, pzz, pzzz = p
+    u2, s2 = _muls(f, (qx, pzz), (qy, pzzz))
+    pp = mont.sub(f, u2, px)
+    r = mont.sub(f, s2, py)
+    same_x = mont.is_zero(f, pp)
+    same_y = mont.is_zero(f, r)
+    out = _add_tail(f, px, py, pp, r, pzz, pzzz)
+
+    p_inf = mont.is_zero(f, pzz)
+    is_dbl = same_x & same_y & ~p_inf & ~q_inf
+    is_inf = same_x & ~same_y & ~p_inf & ~q_inf
+    zero = torch.zeros_like(pp)
+    one = mont.ones(f, q_inf.shape, qx.device)
+    q_xyzz = _pick(q_inf, (zero,) * 4, (qx, qy, one, one))
+
+    out = _pick(is_inf, (zero,) * 4, out)
+    out = _pick_dbl(f, is_dbl, p, out)
+    out = _pick(q_inf, p, out)
+    out = _pick(p_inf, q_xyzz, out)
     return out
 
 
@@ -121,5 +170,25 @@ def dbl_xyzz(f: FieldSpec, p):
     return tuple(o.view(-1, *batch) for o in outs)
 
 
+def madd_xyzz(f: FieldSpec, p, qx, qy, qinf):
+    """p: 4-tuple of (W, *batch) XYZZ coords; qx, qy: (W, *batch) affine
+    coords; qinf: batch-shaped infinity flags of q (bool or int).  CPU
+    tensors take ``madd_xyzz_plain``; CUDA tensors launch K4 or raise."""
+    if p[0].device.type == "cpu":
+        return madd_xyzz_plain(f, p, qx, qy, qinf.to(torch.bool))
+    coords, batch, n = _flat(f, list(p) + [qx, qy])
+    if qinf.shape != batch:
+        raise ValueError(f"qinf must have the batch shape {tuple(batch)}, got {tuple(qinf.shape)}")
+    flags = qinf.to(torch.int32).contiguous()
+    check_cuda(f, flags)
+    outs = [torch.empty_like(c) for c in coords[:4]]
+    if n:
+        _build.launch("tt_madd_xyzz", *(t.data_ptr() for t in coords + [flags] + outs), n,
+                      consts_ptr(f), coords[0].shape[0])
+        madd_xyzz.launches += 1
+    return tuple(o.view(-1, *batch) for o in outs)
+
+
 add_xyzz.launches = 0
 dbl_xyzz.launches = 0
+madd_xyzz.launches = 0

@@ -23,7 +23,7 @@ import functools
 
 import torch
 
-from tachyon_tpu.fields.spec import FieldSpec
+from tachyon_tpu_torch.fields.spec import FieldSpec
 from tachyon_tpu_torch.fields.limbs import int_to_words, n0inv32, word_count
 from tachyon_tpu_torch.ops import _build
 from tachyon_tpu_torch.ops.mont import _consts, csub_p, ripple, widen

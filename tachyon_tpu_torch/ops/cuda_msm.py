@@ -5,7 +5,7 @@ Replace the Pallas kernels of ``tachyon_tpu/ops/pallas_msm.py``:
 * K5 ``_suffix_sweep_call`` (``pl.pallas_call`` at line 147, body
   ``_madd_blinded``): per lane c, starting from the blind point D,
   ``suffix[r, :, c] = D + sum_{r' >= r} P[r', c]`` for every row r, with
-  the 11-multiply blinded mixed add; lanes whose point is at infinity keep
+  the 10-multiply blinded mixed add; lanes whose point is at infinity keep
   the accumulator.
 * K6 ``_reduce_sweep_call`` (``pl.pallas_call`` at line 201, body
   ``_add_blinded``): per lane, D + sum_r Q[r, c] over XYZZ rows, with only
@@ -15,7 +15,7 @@ The TPU walks the rows in a sequential grid and keeps the lane accumulators
 in VMEM scratch.  Blocks on Hopper run in no order, so the row walk becomes
 a loop inside one thread per lane (``csrc/msm_sweeps.cu``), with the
 accumulator in registers.  Bound on the card: K5 at 2^22 points is 2^22
-mixed adds (~1.6k multiply-adds each) over 4096 lanes, i.e. only 4096
+mixed adds (~1.4k word products each) over 4096 lanes, i.e. only 4096
 threads on 132 SMs, so it is latency- and occupancy-bound, not
 memory-bound (it streams 64 bytes in and 128 bytes out per point).  Spreading
 one lane's rows over several threads is later work.
@@ -30,45 +30,10 @@ from __future__ import annotations
 
 import torch
 
-from tachyon_tpu.fields.spec import FieldSpec
-from tachyon_tpu_torch.ops import _build, mont
-from tachyon_tpu_torch.ops.cuda_ec import _pick, add_xyzz_plain, dbl_xyzz_plain
+from tachyon_tpu_torch.fields.spec import FieldSpec
+from tachyon_tpu_torch.ops import _build
+from tachyon_tpu_torch.ops.cuda_ec import add_xyzz_plain, madd_xyzz_plain
 from tachyon_tpu_torch.ops.cuda_mont import check_cuda, consts_ptr
-
-
-def _madd_xyzz_plain(f: FieldSpec, p, qx, qy, q_inf):
-    """madd-2008-s (mixed add, q affine) with complete case handling; mirrors
-    ``SWCurve._madd_xyzz_jnp``.  Plain twin inside K5 only: the public mixed
-    add and its kernel (K4) are not ported yet."""
-    px, py, pzz, pzzz = p
-    u2 = mont.mul(f, qx, pzz)
-    s2 = mont.mul(f, qy, pzzz)
-    pp = mont.sub(f, u2, px)
-    r = mont.sub(f, s2, py)
-    same_x = mont.is_zero(f, pp)
-    same_y = mont.is_zero(f, r)
-    pp2 = mont.square(f, pp)
-    ppp = mont.mul(f, pp, pp2)
-    qq = mont.mul(f, px, pp2)
-    x3 = mont.sub(f, mont.sub(f, mont.square(f, r), ppp), mont.double(f, qq))
-    y3 = mont.sub(f, mont.mul(f, r, mont.sub(f, qq, x3)), mont.mul(f, py, ppp))
-    zz3 = mont.mul(f, pzz, pp2)
-    zzz3 = mont.mul(f, pzzz, ppp)
-
-    dbl = dbl_xyzz_plain(f, p)
-    p_inf = mont.is_zero(f, pzz)
-    is_dbl = same_x & same_y & ~p_inf & ~q_inf
-    is_inf = same_x & ~same_y & ~p_inf & ~q_inf
-    zero = torch.zeros_like(x3)
-    one = mont.ones(f, q_inf.shape, qx.device)
-    q_xyzz = _pick(q_inf, (zero,) * 4, (qx, qy, one, one))
-
-    out = (x3, y3, zz3, zzz3)
-    out = _pick(is_inf, (zero,) * 4, out)
-    out = _pick(is_dbl, dbl, out)
-    out = _pick(q_inf, p, out)
-    out = _pick(p_inf, q_xyzz, out)
-    return out
 
 
 def suffix_sweep_plain(f: FieldSpec, x, y, inf, d):
@@ -77,7 +42,7 @@ def suffix_sweep_plain(f: FieldSpec, x, y, inf, d):
     acc = tuple(d)
     rows = [None] * R
     for r in range(R - 1, -1, -1):
-        acc = _madd_xyzz_plain(f, acc, x[r], y[r], inf[r, 0] != 0)
+        acc = madd_xyzz_plain(f, acc, x[r], y[r], inf[r, 0] != 0)
         rows[r] = acc
     return tuple(torch.stack([row[k] for row in rows]) for k in range(4))
 

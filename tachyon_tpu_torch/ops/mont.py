@@ -21,7 +21,7 @@ from typing import Sequence
 
 import torch
 
-from tachyon_tpu.fields.spec import FieldSpec
+from tachyon_tpu_torch.fields.spec import FieldSpec
 from tachyon_tpu_torch.fields.limbs import WORD_BITS, WORD_MASK, int_to_words, word_count
 
 
@@ -92,12 +92,14 @@ def csub_p(f: FieldSpec, w: torch.Tensor, extra: torch.Tensor) -> torch.Tensor:
 # public ops: all take/return (W, *batch) int32 words in Montgomery form
 # ----------------------------------------------------------------------------
 
-def zeros(f: FieldSpec, batch_shape: Sequence[int], device=None) -> torch.Tensor:
+def zeros(f: FieldSpec, batch_shape: Sequence[int],
+          device=torch.device("cuda")) -> torch.Tensor:
     return torch.zeros((word_count(f), *batch_shape), dtype=torch.int32, device=device)
 
 
-def ones(f: FieldSpec, batch_shape: Sequence[int], device=None) -> torch.Tensor:
-    one = _consts(f, torch.device(device or "cpu"))["one"]
+def ones(f: FieldSpec, batch_shape: Sequence[int],
+         device=torch.device("cuda")) -> torch.Tensor:
+    one = _consts(f, torch.device(device))["one"]
     return _col(one, 1 + len(batch_shape)).expand(-1, *batch_shape).contiguous()
 
 

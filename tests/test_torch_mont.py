@@ -4,6 +4,8 @@ Inputs are made with numpy from a fixed seed and go through both
 packages; results must agree bit for bit (both return canonical
 Montgomery residues, and R is the same in both).
 """
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -13,6 +15,7 @@ from tachyon_tpu.fields import presets
 from tachyon_tpu.fields.spec import int_to_limbs
 from tachyon_tpu.ops import mont as jmont
 from tachyon_tpu_torch.fields import limbs
+from tachyon_tpu_torch.math import curves, field
 from tachyon_tpu_torch.ops import cuda_mont, mont
 
 torch.set_num_threads(1)  # tiny tensors; the suite runs several workers
@@ -118,7 +121,7 @@ def test_mont_conversion_and_small(f):
         pow(x, 5, f.p) for x in xs]
     assert bool(mont.is_zero(f, mont.sub(f, m, m)).all())
     assert bool(mont.eq(f, m, m).all())
-    assert [int(v) for v in limbs.decode(f, mont.ones(f, (2,)))] == [1, 1]
+    assert [int(v) for v in limbs.decode(f, mont.ones(f, (2,), "cpu"))] == [1, 1]
 
 
 def test_point_repack_and_input_checks():
@@ -144,3 +147,22 @@ def test_point_repack_and_input_checks():
         cuda_mont.check_cuda(f, aff.x)
     with pytest.raises(ValueError):
         cuda_mont.check_cuda(presets.BLS12_381_FQ, aff.x)
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """curves.*, PrimeField and mont.zeros/ones default to CUDA; with no CUDA
+    device a call left at its default raises instead of taking the CPU."""
+    cuda = torch.device("cuda")
+    for fn in (curves.bn254_fq, curves.bn254_fr, curves.bn254_g1, field.PrimeField,
+               mont.zeros, mont.ones):
+        assert inspect.signature(fn).parameters["device"].default == cuda, fn
+    no_card = not torch.cuda.is_available()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for fn in (curves.bn254_fq, curves.bn254_fr, curves.bn254_g1):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn()
+    if no_card:
+        for fn in (mont.zeros, mont.ones):
+            with pytest.raises((RuntimeError, AssertionError)):
+                fn(presets.BN254_FR, (2,))
+    assert curves.bn254_g1("cpu").device == torch.device("cpu")

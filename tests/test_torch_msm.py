@@ -18,6 +18,7 @@ import jax.numpy as jnp
 
 from tachyon_tpu.math import curves as jcurves
 from tachyon_tpu.math import msm as jmsm
+from tachyon_tpu.math.ec import PointXYZZ as JPointXYZZ
 from tachyon_tpu.ops import pallas_msm
 from tachyon_tpu.fields.spec import int_to_limbs
 from tachyon_tpu_torch.fields import limbs
@@ -39,7 +40,7 @@ def pool_points(rng, k=32):
 
 def port_inputs(pts, scalars):
     """Point ints (None = infinity) and scalar ints -> port tensors."""
-    F = curves.bn254_g1().F
+    F = curves.bn254_g1("cpu").F
     xs = [0 if p is None else p[0] for p in pts]
     ys = [0 if p is None else p[1] for p in pts]
     inf = torch.tensor([p is None for p in pts])
@@ -48,7 +49,7 @@ def port_inputs(pts, scalars):
 
 
 def port_msm_affine(pts, scalars, **kw):
-    curve = curves.bn254_g1()
+    curve = curves.bn254_g1("cpu")
     points, sw = port_inputs(pts, scalars)
     aff = curve.to_affine(tmsm.msm(curve, points, sw, **kw))
     if bool(aff.inf):
@@ -61,7 +62,7 @@ def jax_blinds():
 
 
 def test_blind_points_match_jax():
-    got = tmsm._blind_points(curves.bn254_g1())
+    got = tmsm._blind_points(curves.bn254_g1("cpu"))
     for (jp, jn), (tp, tn) in zip(jax_blinds(), got):
         for jt, tt in zip(tuple(jp) + tuple(jn), tuple(tp) + tuple(tn)):
             np.testing.assert_array_equal(limbs.to_jax_limbs(tt), np.asarray(jt))
@@ -108,7 +109,7 @@ def test_suffix_sweep_vs_jax():
     x, y, inf, (dc, _) = sweep_inputs()
     want = pallas_msm.suffix_sweep_jnp(jcurves.bn254_g1(), jnp.asarray(x), jnp.asarray(y),
                                        jnp.asarray(inf), tuple(jnp.asarray(t) for t in dc))
-    f = curves.bn254_g1().F.spec
+    f = curves.bn254_g1("cpu").F.spec
     got = cuda_msm.suffix_sweep(f, rows_to_port(x), rows_to_port(y),
                                 torch.from_numpy(inf.astype(np.int32)),
                                 tuple(limbs.from_jax_limbs(t) for t in dc))
@@ -119,7 +120,7 @@ def test_suffix_sweep_vs_jax():
 
 def test_reduce_sweep_vs_jax():
     x, y, inf, (d1, d2) = sweep_inputs()
-    f = curves.bn254_g1().F.spec
+    f = curves.bn254_g1("cpu").F.spec
 
     # XYZZ rows with varied zz: suffix sums of the affine rows, some zeroed
     suf = cuda_msm.suffix_sweep(f, rows_to_port(x), rows_to_port(y),
@@ -135,7 +136,8 @@ def test_reduce_sweep_vs_jax():
 
 
 def test_msm_n64_vs_reference():
-    """n = 64 (the JAX package's naive range) through the port's sweep path."""
+    """n = 64 takes the naive path (scalar_mul + tree reduce), as in the
+    JAX package."""
     rng = np.random.default_rng(33)
     pts = pool_points(rng, 64)
     scalars = [int(s) for s in rng.integers(0, 1 << 10, 64)]
@@ -187,27 +189,60 @@ def test_cpu_tensors_launch_no_kernel():
 
 
 def test_port_imports_without_jax():
-    """Every port module and chip_smoke import with jax made unimportable."""
+    """Every port module and chip_smoke import with jax and the JAX package
+    (tachyon_tpu) made unimportable."""
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "tachyon_tpu_torch").rglob("*.py"))
     code = (
-        "import sys; sys.modules['jax'] = None\n"
+        "import sys; sys.modules['jax'] = None; sys.modules['tachyon_tpu'] = None\n"
         f"import importlib\nfor m in {mods + ['chip_smoke']!r}:\n"
         "    importlib.import_module(m)\n"
-        "assert not any(k == 'jax' or k.startswith('jax.') for k in sys.modules"
+        "assert not any(k.split('.')[0] in ('jax', 'tachyon_tpu') for k in sys.modules"
         " if sys.modules[k] is not None)\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
-    assert len(mods) >= 12
+    assert len(mods) >= 23
+
+
+def test_msm_naive_dispatch(monkeypatch):
+    """n <= 128 goes to _msm_naive and n = 129 to the sweep path, at the JAX
+    package's threshold."""
+    assert tmsm.MSM_NAIVE_THRESHOLD == jmsm.MSM_NAIVE_THRESHOLD == 128
+    calls = []
+    monkeypatch.setattr(tmsm, "_msm_naive", lambda c, p, s: calls.append(s.shape[1]) or "naive")
+    rng = np.random.default_rng(38)
+    pool = pool_points(rng, 8)
+    scalars = [int(s) for s in rng.integers(0, 1 << 10, 129)]
+    pts = [pool[i % 8] for i in range(129)]
+    curve = curves.bn254_g1("cpu")
+    points, sw = port_inputs(pts[:128], scalars[:128])
+    assert tmsm.msm(curve, points, sw) == "naive" and calls == [128]
+    assert port_msm_affine(pts, scalars, c=10, total_bits=10) == host_ec.msm(pts, scalars, 0, P)
+    assert calls == [128]
+
+
+def test_tree_reduce_vs_jax():
+    """The naive path's tree reduce over 3 lanes (padded to 4 with
+    infinity), word for word against the JAX package's."""
+    rng = np.random.default_rng(39)
+    pts = pool_points(rng, 3)
+    F = jcurves.bn254_g1().F
+    lanes = [[p[0] for p in pts], [p[1] for p in pts], [1] * 3, [1] * 3]
+    j = tuple(F.encode(np.array(v, dtype=object)) for v in lanes)
+    want = jmsm._tree_reduce(jcurves.bn254_g1(), JPointXYZZ(*(jnp.asarray(t) for t in j)), 3)
+    got = tmsm._tree_reduce(curves.bn254_g1("cpu"),
+                            PointXYZZ(*(limbs.from_jax_limbs(t) for t in j)), 3)
+    for jt, tt in zip(want, got):
+        np.testing.assert_array_equal(limbs.to_jax_limbs(tt), np.asarray(jt))
 
 
 def test_msm_window_glue_helpers():
     """Lane shifts bring in infinity; the layout follows the JAX package."""
-    curve = curves.bn254_g1()
+    curve = curves.bn254_g1("cpu")
     g = curve.to_xyzz(curve.generator((4,)))
     sh = tmsm._shift_left(g, 3)
     assert bool((sh.zz[:, 1:] == 0).all()) and torch.equal(sh.x[:, 0], g.x[:, 3])
