@@ -8,10 +8,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device: requires CUDA and prints the card's name and power limit;
 2. build: compiles the CUDA kernels from tachyon_tpu_torch/csrc (one nvcc
    per source, all started together);
-3. kernels: each of K1-K6 against its plain PyTorch twin on the card,
-   bit-exact on the words, both timed with CUDA events, beside its bound:
-   the larger of its bytes over 3.35 TB/s and its 32x32-bit word products
-   over 64 per clock per SM x 132 SMs x the card's max SM clock;
+3. kernels: each of K1-K6 and the fused scalar_mul ladder against its
+   plain PyTorch twin on the card, bit-exact on the words, both timed with
+   CUDA events, beside its bound: the larger of its bytes over 3.35 TB/s
+   and its 32x32-bit word products over 64 per clock per SM x 132 SMs x
+   the card's max SM clock.  K5, redesigned into three launches over S row
+   segments, is also held as points, over all 1024 rows of a 256-lane
+   slice, against the sequential twin of the TPU kernel, with its segment
+   count and the time of each launch, and timed at the smaller MSMs'
+   layouts against one segment (S = 1);
 4. MSM: the BN254 G1 MSM at n = 2^22 (msm + to_affine) on the point set of
    bench.py (256 exact multiples of G, seed 42, tiled; 254-bit scalars),
    checked against the host-exact point, with the kernels' launch counts;
@@ -23,8 +28,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    {"ok": true, "device": {"platform": "gpu", ...}} last.
 
 Each main path (4 and 5) runs with every launch count set to 0 just before
-it, and fails if a kernel of that path was launched no time.  Imports no
-JAX and nothing of the JAX package: the port is torch-only.
+it, and fails if a kernel of that path (MSM_PATH, KZG_PATH) was launched no
+time.  Imports no JAX and nothing of the JAX package: the port is
+torch-only.
 """
 from __future__ import annotations
 
@@ -40,7 +46,7 @@ import torch
 from tachyon_tpu_torch.crypto import kzg, pedersen
 from tachyon_tpu_torch.fields import limbs
 from tachyon_tpu_torch.math import curves, host_ec
-from tachyon_tpu_torch.math.ec import AffinePoint
+from tachyon_tpu_torch.math.ec import AffinePoint, PointXYZZ
 from tachyon_tpu_torch.math.msm import _blind_points, _bcast, msm, optimal_window_bits
 from tachyon_tpu_torch.math.ntt import Radix2Domain
 from tachyon_tpu_torch.ops import _build, cuda_ec, cuda_mont, cuda_msm, mont
@@ -56,10 +62,14 @@ SIZES = {
     "k1_fr": 1 << 16,       # K1 elements, BN254 Fr
     "k2": (1 << 17) - 1,    # K2 lanes: the T-gather width 2^c - 1
     "k3": 4096,             # K3 lanes
-    "k4": 1 << 20,          # K4 lanes: scalar_mul over the 2^20 SRS
-    "k5": (1024, 4096, 16), # K5 (R, C) and the rows its plain twin runs
+    "k4": 1 << 20,          # K4 lanes
+    "ladder": (1 << 20, 4096),  # scalar_mul lanes (the 2^20 SRS), lanes of its plain twin
+    "k5": (1024, 4096, 16, 256),  # K5 (R, C), top rows and lanes its plain twins run
+    # K5 (R, C) of smaller MSMs: n = 2^14, 2^15 - 2^9, 2^16, 2^18
+    "k5_small": ((32, 512), (64, 512), (16, 4096), (64, 4096)),
     "k6": (256, 512),       # K6 (R2, C2)
 }
+K5_SMALL_S = (1, 2, 4, 8)  # segment counts timed beside the one K5 picks there
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, at 700 W
 IMAD_PER_CLK_SM = 64       # 32-bit integer multiply-adds per clock per SM, cc 9.0
 SMS = 132
@@ -77,11 +87,20 @@ KERNELS = {
                  "tachyon_tpu/ops/pallas_ec.py:232"),
     "madd_xyzz": (cuda_ec.madd_xyzz, "tachyon_tpu_torch/csrc/ec.cu",
                   "tachyon_tpu/ops/pallas_ec.py:257"),
+    "scalar_mul_xyzz": (cuda_ec.scalar_mul, "tachyon_tpu_torch/csrc/ladder.cu",
+                        "tachyon_tpu/ops/pallas_ec.py:257"),
     "suffix_sweep": (cuda_msm.suffix_sweep, "tachyon_tpu_torch/csrc/msm_sweeps.cu",
                      "tachyon_tpu/ops/pallas_msm.py:147"),
     "reduce_sweep": (cuda_msm.reduce_sweep, "tachyon_tpu_torch/csrc/msm_sweeps.cu",
                      "tachyon_tpu/ops/pallas_msm.py:201"),
 }
+
+# what the fused ladder replaces beside K4: K3 and the scan's select per bit
+ALSO_REPLACES = {"scalar_mul_xyzz": ["tachyon_tpu/ops/pallas_ec.py:232",
+                                     "tachyon_tpu/math/ec.py:313-338"]}
+# K5 at (1024, 8, 4096) with one thread per lane, before the segments
+# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md)
+K5_OLD_MS = 8.4759
 
 
 def log(msg: str) -> None:
@@ -107,6 +126,38 @@ def word_err(a, b) -> int:
     for x, y in zip(a, b):
         err = max(err, int((mont.widen(x) - mont.widen(y)).abs().max()))
     return err
+
+
+def same_points(f, a, b) -> torch.Tensor:
+    """Per lane: XYZZ a and b (4-tuples of (W, *batch)) are the same point,
+    X ZZ' = X' ZZ and Y ZZZ' = Y' ZZZ (Montgomery products, K1 on the card),
+    both at infinity (zz = 0) or both finite."""
+    W = a[0].shape[0]
+    ax, ay, azz, azzz = (t.reshape(W, -1) for t in a)
+    bx, by, bzz, bzzz = (t.reshape(W, -1) for t in b)
+    n = ax.shape[1]
+    lhs = mont.mul(f, torch.cat([ax, ay], 1), torch.cat([bzz, bzzz], 1))
+    rhs = mont.mul(f, torch.cat([bx, by], 1), torch.cat([azz, azzz], 1))
+    eq = mont.eq(f, lhs, rhs)
+    a_inf, b_inf = mont.is_zero(f, azz), mont.is_zero(f, bzz)
+    return (a_inf & b_inf) | (~a_inf & ~b_inf & eq[:n] & eq[n:])
+
+
+def ladder_muls(scalars: torch.Tensor, pinf: torch.Tensor) -> int:
+    """Field multiplies the ladder's lanes need: from a lane's top set bit t
+    (its madd from infinity is a copy), t doublings of 9 and popcount - 1
+    mixed adds of 10; none where P is infinity or the scalar is 0."""
+    w = mont.widen(scalars)
+    Ws = w.shape[0]
+    top = torch.full(w.shape[1:], -1, dtype=torch.int64, device=w.device)
+    pop = torch.zeros_like(top)
+    base = 32 * torch.arange(Ws, device=w.device).reshape(Ws, *(1,) * (w.ndim - 1))
+    for j in range(32):
+        bit = (w >> j) & 1
+        pop += bit.sum(0)
+        top = torch.maximum(top, torch.where(bit == 1, base + j, -1).amax(0))
+    live = (top >= 0) & ~pinf
+    return int(torch.where(live, 9 * top + 10 * (pop - 1), 0).sum())
 
 
 def random_elements(f, n: int, g: torch.Generator, device) -> torch.Tensor:
@@ -135,6 +186,17 @@ def tile(t: torch.Tensor, n: int) -> torch.Tensor:
     return t.repeat(1, reps)[:, :n].contiguous()
 
 
+def timed_once(fn):
+    """fn's result and its milliseconds on the card, one call (CUDA events)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def bound_ms(nbytes: int, products: int, clock_hz: float) -> tuple[float, str]:
     """Least time for the work: bytes over the memory rate, or word products
     over the integer multiply-add rate, whichever is larger."""
@@ -156,6 +218,55 @@ def check(name, got, want, kernel_ms, plain_ms, shape, plain_shape, work, result
     results.setdefault(name, {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
                               "bound_ms": bms, "bound_by": by, "shape": shape,
                               "plain_shape": plain_shape})
+
+
+def row_tiled(base_x, base_y, R: int, C: int, fixed: int = 0):
+    """Sweep rows (R, W, C) of the base points: row r of lane c holds base
+    point (c + r) % 256, so a lane's rows differ and so do the lanes of a
+    row; lanes below ``fixed`` hold base point c on every row."""
+    rr = torch.arange(R, device=base_x.device)[:, None]
+    cc = torch.arange(C, device=base_x.device)[None, :]
+    idx = torch.where(cc < fixed, cc, (cc + rr) % base_x.shape[1])
+    return tuple(b[:, idx].permute(1, 0, 2).contiguous() for b in (base_x, base_y))
+
+
+def k5_small(f, base_x, base_y, d1, g, device) -> list:
+    """K5 at the smaller MSMs' (R, C): the S that ``segments`` picks and
+    each S of K5_SMALL_S, timed (CUDA events, 20 calls); every S's rows
+    equal as points to S = 1's, the S = 1 rows word for word to the
+    sequential twin and the picked S's to the segmented twin."""
+    out = []
+    for R, C in SIZES["k5_small"]:
+        x, y = row_tiled(base_x, base_y, R, C)
+        inf = (torch.rand((R, 1, C), generator=g, device=device) < 0.05).to(torch.int32)
+        dc = tuple(_bcast(d1, (C,)))
+        plans = [cuda_msm.suffix_sweep_plan(f, x, y, inf, dc)]
+        plans += [cuda_msm.suffix_sweep_plan(f, x, y, inf, dc, S) for S in K5_SMALL_S]
+        ms = {}
+        for plan in plans:
+            def run(plan=plan):
+                for name, args in plan.launches:
+                    _build.launch(name, *args)
+            run()
+            ms.setdefault(plan.S, cuda_ms(run, 20))
+        one = plans[1].outs
+        S = plans[0].S
+        if word_err(one, cuda_msm.suffix_sweep_plain(f, x, y, inf, dc)) != 0:
+            raise AssertionError(f"suffix_sweep at ({R}, {C}), S = 1: words differ "
+                                 f"from the sequential twin")
+        if word_err(plans[0].outs, cuda_msm.suffix_sweep_segmented_plain(f, x, y, inf, dc, S)):
+            raise AssertionError(f"suffix_sweep at ({R}, {C}), S = {S}: words differ "
+                                 f"from the segmented twin")
+        for plan in plans:
+            if not bool(same_points(f, tuple(t.permute(1, 0, 2) for t in plan.outs),
+                                    tuple(t.permute(1, 0, 2) for t in one)).all()):
+                raise AssertionError(f"suffix_sweep at ({R}, {C}): S = {plan.S} and S = 1 "
+                                     f"differ as points")
+        log(f"[k5-small] ({R}, 8, {C}): picked S={S} {ms[S]:.4f} ms; by S "
+            + ", ".join(f"{k}: {v:.4f}" for k, v in sorted(ms.items())))
+        out.append({"shape": [R, 8, C], "S": S, "ms": ms[S],
+                    "ms_by_S": {str(k): v for k, v in sorted(ms.items())}})
+    return out
 
 
 def lifted(f, x, y, lam):
@@ -250,25 +361,94 @@ def phase_kernels(device, base_x, base_y, clock_hz, mm, results):
           ((6 * 32 + 4 + 4 * 32) * n4, mm * muls4, clock_hz), results)
     del p4, qx, qy, got4, want4
 
-    # K5 at R = 1024, C = 4096 (2^22 points) with infinity lanes.  The sweep
-    # runs bottom-up, so rows R - r0 .. R - 1 of its output depend only on
-    # those input rows: the plain twin runs on them alone.
-    R, C, r0 = SIZES["k5"]
+    # The fused ladder at 2^20 lanes (the setup's width): P = G, but the odd
+    # lanes from 8 on take base point lane % 256; some lanes with P at
+    # infinity, scalars 0, 1 and r - 1 in lanes 0-2, the rest random below
+    # 2^253; its plain twin on the first lanes, host ints on lanes 0-15.
+    nl, nchk = SIZES["ladder"]
+    gen = curve.generator((nl,))
+    lane_l = torch.arange(nl, device=device)
+    other = (lane_l % 2 == 1) & (lane_l >= 8)
+    px = mont.select(other, tile(base_x, nl), gen.x)
+    py = mont.select(other, tile(base_y, nl), gen.y)
+    del gen
+    sc = random_elements(fr, nl, g, device)
+    pinf = (lane_l % 1021 == 5) | (lane_l == 6)
+    got_l = cuda_ec.scalar_mul(fq, px, py, pinf, sc)
+    want_l, plain_l = timed_once(lambda: cuda_ec.scalar_mul_plain(
+        fq, px[:, :nchk], py[:, :nchk], pinf[:nchk], sc[:, :nchk]))
+    nh = 16
+    aff = curve.to_affine(PointXYZZ(*(t[:, :nh].contiguous() for t in got_l)))
+    ps = zip(curve.F.decode(px[:, :nh]), curve.F.decode(py[:, :nh]))
+    ks = limbs.words_to_ints(sc[:, :nh].cpu().numpy().view(np.uint32))
+    want_aff = [None if bool(pinf[i]) else host_ec.scalar_mul((int(a), int(b)), k, 0, curve.F.p)
+                for i, ((a, b), k) in enumerate(zip(ps, ks))]
+    if sampled_points(curve, aff, list(range(nh))) != want_aff:
+        raise AssertionError(f"scalar_mul: lanes 0-{nh - 1} (0, 1, r - 1, P = inf, P != G) "
+                             f"differ from host ints")
+    check("scalar_mul_xyzz", tuple(t[:, :nchk] for t in got_l), want_l,
+          cuda_ms(lambda: cuda_ec.scalar_mul(fq, px, py, pinf, sc), 3), plain_l,
+          f"2 x (8, {nl}) + ({nl},) + (8, {nl})", f"(8, {nchk})",
+          ((2 * 32 + 4 + 32 + 4 * 32) * nl, mm * ladder_muls(sc, pinf), clock_hz), results)
+    del px, py, sc, got_l, aff
+
+    # K5 at R = 1024, C = 4096 (2^22 points) with infinity lanes; row r of
+    # lane c holds base point (c + r) % 256.  Lanes 0-3 hold one point on
+    # all rows, with: the top segment all at infinity (the carry doubles D),
+    # segment 1 all at infinity (T = D), every row at infinity, and the two
+    # top segments with sums equal (the carry doubles).
+    R, C, r0, c0 = SIZES["k5"]
     (d1, _), (d2, _) = _blind_points(curve)
-    x = tile(base_x, R * C).view(8, R, C).permute(1, 0, 2).contiguous()
-    y = tile(base_y, R * C).view(8, R, C).permute(1, 0, 2).contiguous()
+    x, y = row_tiled(base_x, base_y, R, C, fixed=4)
     inf = (torch.rand((R, 1, C), generator=g, device=device) < 0.05).to(torch.int32)
     dc = tuple(_bcast(d1, (C,)))
+    plan = cuda_msm.suffix_sweep_plan(fq, x, y, inf, dc)
+    S = plan.S
+    L = -(-R // S)
+    top = (S - 1) * L  # first row of the top (ragged) segment
+    if S < 3 or R - top < r0:
+        raise AssertionError(f"K5 at ({R}, {C}): S = {S} segments of {L} rows, top {R - top}")
+    inf[top:, 0, 0] = 1
+    inf[L:2 * L, 0, 1] = 1
+    inf[:, 0, 2] = 1
+    inf[top - L:, 0, 3] = 0
+    inf[top - L:top - L + (L - (R - top)), 0, 3] = 1
     suf = cuda_msm.suffix_sweep(fq, x, y, inf, dc)
-    want5 = cuda_msm.suffix_sweep_plain(fq, x[R - r0:], y[R - r0:], inf[R - r0:], dc)
+    sl = (slice(None), slice(None), slice(0, c0))
+    xs, ys, infs = x[sl].contiguous(), y[sl].contiguous(), inf[sl].contiguous()
+    ds = tuple(t[:, :c0].contiguous() for t in dc)
+    want5, plain5 = timed_once(lambda: cuda_msm.suffix_sweep_segmented_plain(
+        fq, xs, ys, infs, ds, S))
+    seq5 = cuda_msm.suffix_sweep_plain(fq, xs, ys, infs, ds)
+    got5 = tuple(t[sl] for t in suf)
+    same = same_points(fq, tuple(t.permute(1, 0, 2) for t in got5),
+                       tuple(t.permute(1, 0, 2) for t in seq5)).view(R, c0)
+    if not bool(same.all()):
+        bad = same.logical_not().nonzero()[:4].tolist()
+        raise AssertionError(f"suffix_sweep: rows differ as points from the sequential twin "
+                             f"at (row, lane) {bad}")
+    if word_err(tuple(t[top:] for t in got5), tuple(t[top:] for t in seq5)) != 0:
+        raise AssertionError("suffix_sweep: the top segment's words differ from the sequential twin")
+    want_top = cuda_msm.suffix_sweep_plain(fq, x[R - r0:], y[R - r0:], inf[R - r0:], dc)
+    if word_err(tuple(t[R - r0:] for t in suf), want_top) != 0:
+        raise AssertionError(f"suffix_sweep: the top {r0} rows differ from the sequential twin")
+    moved = sum(int((a != b).any(dim=1).sum()) for a, b in zip(got5, seq5))
+    phase_ms = [cuda_ms(lambda a=args, nm=name: _build.launch(nm, *a), 3)
+                for name, args in plan.launches]
     live5 = R * C - int(inf.sum())
-    check("suffix_sweep", tuple(t[R - r0:] for t in suf), want5,
-          cuda_ms(lambda: cuda_msm.suffix_sweep(fq, x, y, inf, dc), 3),
-          cuda_ms(lambda: cuda_msm.suffix_sweep_plain(
-              fq, x[R - r0:], y[R - r0:], inf[R - r0:], dc), 1),
-          f"({R}, 8, {C})", f"({r0}, 8, {C})",
-          (R * C * (32 + 32 + 4) + 4 * 32 * C + 4 * 32 * R * C, mm * 10 * live5, clock_hz),
-          results)
+    k5_ms = cuda_ms(lambda: cuda_msm.suffix_sweep(fq, x, y, inf, dc), 3)
+    work5 = (R * C * (32 + 32 + 4) + 4 * 32 * C + 4 * 32 * R * C, mm * 10 * live5, clock_hz)
+    log(f"[k5] S={S} segments of {L} rows (top {R - top}); totals {phase_ms[0]:.4f} ms, "
+        f"carries {phase_ms[1]:.4f} ms, emit {phase_ms[2]:.4f} ms; whole {k5_ms:.4f} ms "
+        f"(before the redesign {K5_OLD_MS} ms, bound {bound_ms(*work5)[0]:.4f} ms); "
+        f"{R} x {c0} rows equal as points to the sequential twin, {moved} coordinate rows "
+        f"with other words")
+    results["suffix_sweep_phases"] = {"S": S, "rows_per_segment": L, "phase_ms": phase_ms,
+                                      "small_shapes": k5_small(fq, base_x, base_y, d1, g,
+                                                               device)}
+    check("suffix_sweep", got5, want5, k5_ms, plain5, f"({R}, 8, {C})", f"({R}, 8, {c0})",
+          work5, results)
+    del plan
 
     # K6 at R = 256, C = 512 (the c = 17 bucket reduce) over XYZZ rows cut
     # from the suffix sums, with infinity entries.
@@ -301,6 +481,8 @@ def slice_inputs(curve, n: int):
 
 
 MSM_PATH = ("mont_mul", "add_xyzz", "dbl_xyzz", "suffix_sweep", "reduce_sweep")
+# madd_xyzz is on neither path: scalar_mul is one ladder launch
+KZG_PATH = ("scalar_mul_xyzz",) + MSM_PATH
 
 
 def reset_launches() -> None:
@@ -432,7 +614,7 @@ def phase_kzg(device):
                 lambda: pedersen.setup(g1, 64, np.random.default_rng(SEED + 1)))
     c_ped = timed("pedersen_commit_64",
                   lambda: kzg.to_int_point(pedersen.commit(g1, ped, msgs_std, blind)))
-    launches = read_launches(tuple(KERNELS))
+    launches = read_launches(KZG_PATH)
     peak = torch.cuda.max_memory_allocated()
 
     t0 = time.perf_counter()
@@ -537,13 +719,19 @@ def main() -> int:
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():
         r = results[name]
-        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": kzg_launches[name], "max_abs_err": r["max_abs_err"],
-                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": None,
-                        "launches_by_path": {f"msm_2^{LOG_N}": msm_launches[name],
-                                             f"kzg_2^{KZG_LOG_N}": kzg_launches[name]},
-                        "shape": r["shape"], "plain_shape": r["plain_shape"]})
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": msm_launches[name] + kzg_launches[name],
+                 "max_abs_err": r["max_abs_err"],
+                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_by": r["bound_by"], "library_ms": None,
+                 "launches_by_path": {f"msm_2^{LOG_N}": msm_launches[name],
+                                      f"kzg_2^{KZG_LOG_N}": kzg_launches[name]},
+                 "shape": r["shape"], "plain_shape": r["plain_shape"]}
+        if name in ALSO_REPLACES:
+            entry["also_replaces"] = ALSO_REPLACES[name]
+        if name == "suffix_sweep":
+            entry.update(results["suffix_sweep_phases"])
+        kernels.append(entry)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,8 +2,9 @@
 
 Port of ``tachyon_tpu/crypto/kzg.py``.  A commitment is an MSM on the
 params' device: the sweep path (K2, K3, K5, K6) above 128 points, the naive
-path (K3, K4, K2) at or below.  The unsafe setup from a test tau is two
-``scalar_mul``s over n lanes (K3, K4) and one inverse NTT (K1); ``verify``
+path (the fused ``scalar_mul`` ladder, K2) at or below.  The unsafe setup
+from a test tau is two ``scalar_mul``s over n lanes (one ladder launch
+each) and one inverse NTT (K1); ``verify``
 is the exact host pairing (``math/pairing_bn254.py``).
 
 Where the JAX package loops over n Python ints, the port builds the words

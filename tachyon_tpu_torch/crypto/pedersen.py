@@ -1,8 +1,8 @@
 """Pedersen vector commitment: <g, m> + r h.
 
 Port of ``tachyon_tpu/crypto/pedersen.py``.  The generators come from
-``random_affine`` (``scalar_mul``: K3, K4); a commitment is two MSMs, the
-second over the single point h (the naive path).
+``random_affine`` (``scalar_mul``: one ladder launch); a commitment is two
+MSMs, the second over the single point h (the naive path).
 """
 from __future__ import annotations
 

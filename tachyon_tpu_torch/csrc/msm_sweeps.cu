@@ -1,39 +1,179 @@
 // K5 (suffix sweep) and K6 (reduce sweep) of the Pippenger bucket phase.
 // Replace tachyon_tpu/ops/pallas_msm.py _suffix_sweep_call (pl.pallas_call at
 // :147) and _reduce_sweep_call (pl.pallas_call at :201).
-//
-// The TPU kernels walk the rows in a sequential grid and carry the lane
-// accumulators in VMEM scratch.  Here one thread owns one lane c: its
-// accumulator lives in registers, and the row loop runs inside the thread.
 // Row-major layouts as in JAX: points (R, W, C), flags (R, 1, C), blinds (W, C).
+//
+// K5 is bound by integer multiplies: a blinded mixed add is 10 field
+// multiplies per live point against 68 bytes read and 128 written.  The TPU
+// walks the rows in a sequential grid; one thread per lane with the row loop
+// inside it gives only C threads (4096 at 2^22, on 132 SMs), each a serial
+// chain of R adds with nothing to hide their latency.  So here a lane's rows
+// are cut into S segments of L = ceil(R / S) rows (the top one ragged), and
+// the sweep is a two-level suffix scan in three launches:
+//
+//   1. totals:  thread (s, c), s >= 1, sweeps segment s bottom-up from D with
+//               the blinded madd and writes T[s] = D + sum_{r in s} P[r, c];
+//   2. carries: one thread per lane, from the top: Cin[S-1] = D, then
+//               Cin[s] = (Cin[s+1] + T[s+1]) + (-D) with the complete add,
+//               since an empty segment gives T = D and two equal segment sums
+//               make the operands equal, cases the blinded add does not take;
+//   3. emit:    thread (s, c) sweeps segment s bottom-up from Cin[s] and
+//               stores every row.  The accumulator is the same point as in
+//               the sequential sweep, so the blinded madd stays safe.
+//
+// Phases 1 and 3 run S x C threads with c fastest, so a warp's loads of one
+// row coalesce.  Phase 1 skips segment 0, whose total nothing reads.  The
+// work is about twice the sequential sweep's, in exchange for S times the
+// threads; each segment also adds two complete adds to the serial chain of
+// phase 2.  The wrapper (ops/cuda_msm.py segments) picks S from R, C, the
+// SM count and SWEEP_THREADS, which it reads from tt_suffix_sweep_threads.
+// Rows outside the top segment get other XYZZ words than the sequential
+// sweep for the same points.
+//
+// Prefetch: the next row's x, y and flag are loaded into registers before
+// the current row's add (a register double buffer).  Chosen over cp.async
+// into shared memory because each thread reads its own words, C apart, so
+// shared memory would only stage what registers hold anyway, with a fence
+// per row.  On the H100 it gained 0-4% over loading each row when its add
+// starts: other warps hide most of the loads.  Phases 1 and 3 ask ptxas
+// for SWEEP_MIN_BLOCKS = 5 blocks per SM, which caps them at 96 registers
+// with 72-88 bytes of spills; they ran 11% faster at (1024, 8, 4096) than
+// with the 148-154 registers ptxas takes uncapped (PERF.md).
 #include <cuda_runtime.h>
 
 #include "xyzz.cuh"
 
-// suffix[r, :, c] = D[c] + sum_{r' >= r} P[r', c], emitted every row.
+constexpr int SWEEP_THREADS = 128;   // phases 1 and 3
+constexpr int SWEEP_MIN_BLOCKS = 5;  // per SM, asked of ptxas for phases 1 and 3
+constexpr int CARRY_THREADS = 32;   // phase 2: one warp per block spreads C lanes over SMs
+
+// Point k (0..3) of scratch slot j in an (S - 1, 4, W, C) array.
 template <int W>
-__global__ void suffix_sweep_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
-                                    const uint32_t* __restrict__ inf,
-                                    const uint32_t* __restrict__ dx, const uint32_t* __restrict__ dy,
-                                    const uint32_t* __restrict__ dzz,
-                                    const uint32_t* __restrict__ dzzz, uint32_t* sx, uint32_t* sy,
-                                    uint32_t* szz, uint32_t* szzz, int64_t R, int64_t C,
-                                    FieldConst<W> f) {
-  int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  Xyzz<W> acc;
-  xyzz_load<W>(acc, dx, dy, dzz, dzzz, C, c);
-  for (int64_t r = R - 1; r >= 0; --r) {
-    const int64_t row = r * W * C;
-    uint32_t qx[W], qy[W];
-    fp_load<W>(qx, x + row, C, c);
-    fp_load<W>(qy, y + row, C, c);
-    xyzz_madd_blinded<W>(acc, qx, qy, inf[r * C + c] != 0, f);
-    xyzz_store<W>(sx + row, sy + row, szz + row, szzz + row, C, c, acc);
+__device__ __forceinline__ const uint32_t* slot(const uint32_t* base, int64_t j, int k,
+                                                int64_t C) {
+  return base + (j * 4 + k) * W * C;
+}
+
+template <int W>
+__device__ __forceinline__ void slot_load(Xyzz<W>& p, const uint32_t* base, int64_t j, int64_t C,
+                                          int64_t c) {
+  xyzz_load<W>(p, slot<W>(base, j, 0, C), slot<W>(base, j, 1, C), slot<W>(base, j, 2, C),
+               slot<W>(base, j, 3, C), C, c);
+}
+
+template <int W>
+__device__ __forceinline__ void slot_store(uint32_t* base, int64_t j, int64_t C, int64_t c,
+                                           const Xyzz<W>& p) {
+  xyzz_store<W>(base + (j * 4) * W * C, base + (j * 4 + 1) * W * C, base + (j * 4 + 2) * W * C,
+                base + (j * 4 + 3) * W * C, C, c, p);
+}
+
+template <int W>
+__device__ __forceinline__ void row_load(uint32_t qx[W], uint32_t qy[W], bool& qinf,
+                                         const uint32_t* __restrict__ x,
+                                         const uint32_t* __restrict__ y,
+                                         const uint32_t* __restrict__ inf, int64_t r, int64_t C,
+                                         int64_t c) {
+  fp_load<W>(qx, x + r * W * C, C, c);
+  fp_load<W>(qy, y + r * W * C, C, c);
+  qinf = inf[r * C + c] != 0;
+}
+
+// Blinded madds of rows hi - 1 down to lo of lane c into acc; with EMIT,
+// every row's accumulator is stored.  The next row is loaded before the
+// current row's add (the last step reloads row lo, which stays in cache).
+template <int W, bool EMIT>
+__device__ __forceinline__ void sweep_rows(Xyzz<W>& acc, const uint32_t* __restrict__ x,
+                                           const uint32_t* __restrict__ y,
+                                           const uint32_t* __restrict__ inf, uint32_t* sx,
+                                           uint32_t* sy, uint32_t* szz, uint32_t* szzz,
+                                           int64_t lo, int64_t hi, int64_t C, int64_t c,
+                                           const FieldConst<W>& f) {
+  if (hi <= lo) return;
+  uint32_t qx[W], qy[W];
+  bool qinf;
+  row_load<W>(qx, qy, qinf, x, y, inf, hi - 1, C, c);
+  for (int64_t r = hi - 1; r >= lo; --r) {
+    uint32_t nx[W], ny[W];
+    bool ninf;
+    row_load<W>(nx, ny, ninf, x, y, inf, r > lo ? r - 1 : r, C, c);
+    xyzz_madd_blinded<W>(acc, qx, qy, qinf, f);
+    if (EMIT) {
+      const int64_t row = r * W * C;
+      xyzz_store<W>(sx + row, sy + row, szz + row, szzz + row, C, c, acc);
+    }
+    fp_copy<W>(qx, nx);
+    fp_copy<W>(qy, ny);
+    qinf = ninf;
   }
 }
 
+// Phase 1: T[s] = D + sum of segment s, for s = 1 .. S - 1, into slot s - 1.
+template <int W>
+__global__ void __launch_bounds__(SWEEP_THREADS, SWEEP_MIN_BLOCKS)
+    suffix_totals_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
+                         const uint32_t* __restrict__ inf, const uint32_t* __restrict__ dx,
+                         const uint32_t* __restrict__ dy, const uint32_t* __restrict__ dzz,
+                         const uint32_t* __restrict__ dzzz, uint32_t* tot, int64_t R, int64_t C,
+                         int64_t L, int64_t S, FieldConst<W> f) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (S - 1) * C) return;
+  const int64_t s = t / C + 1, c = t % C;
+  Xyzz<W> acc;
+  xyzz_load<W>(acc, dx, dy, dzz, dzzz, C, c);
+  const int64_t lo = s * L, hi = lo + L < R ? lo + L : R;
+  sweep_rows<W, false>(acc, x, y, inf, nullptr, nullptr, nullptr, nullptr, lo, hi, C, c, f);
+  slot_store<W>(tot, s - 1, C, c, acc);
+}
+
+// Phase 2: Cin[s] for s = S - 2 .. 0 into slot s (Cin[S - 1] = D is not stored).
+template <int W>
+__global__ void __launch_bounds__(CARRY_THREADS)
+    suffix_carries_kernel(const uint32_t* __restrict__ tot, const uint32_t* __restrict__ dx,
+                          const uint32_t* __restrict__ dy, const uint32_t* __restrict__ dzz,
+                          const uint32_t* __restrict__ dzzz, uint32_t* cin, int64_t C, int64_t S,
+                          FieldConst<W> f) {
+  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  Xyzz<W> acc, nd;
+  xyzz_load<W>(acc, dx, dy, dzz, dzzz, C, c);
+  nd = acc;
+  uint32_t zero[W];
+  fp_zero<W>(zero);
+  fp_sub<W>(nd.y, zero, acc.y, f);  // -D
+  for (int64_t s = S - 2; s >= 0; --s) {
+    Xyzz<W> t;
+    slot_load<W>(t, tot, s, C, c);  // T[s + 1]
+    acc = xyzz_add<W>(acc, t, f);
+    acc = xyzz_add<W>(acc, nd, f);
+    slot_store<W>(cin, s, C, c, acc);
+  }
+}
+
+// Phase 3: every row of segment s from Cin[s] (D for the top segment).
+template <int W>
+__global__ void __launch_bounds__(SWEEP_THREADS, SWEEP_MIN_BLOCKS)
+    suffix_emit_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
+                       const uint32_t* __restrict__ inf, const uint32_t* __restrict__ dx,
+                       const uint32_t* __restrict__ dy, const uint32_t* __restrict__ dzz,
+                       const uint32_t* __restrict__ dzzz, const uint32_t* __restrict__ cin,
+                       uint32_t* sx, uint32_t* sy, uint32_t* szz, uint32_t* szzz, int64_t R,
+                       int64_t C, int64_t L, int64_t S, FieldConst<W> f) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= S * C) return;
+  const int64_t s = t / C, c = t % C;
+  Xyzz<W> acc;
+  if (s == S - 1) {
+    xyzz_load<W>(acc, dx, dy, dzz, dzzz, C, c);
+  } else {
+    slot_load<W>(acc, cin, s, C, c);
+  }
+  const int64_t lo = s * L, hi = lo + L < R ? lo + L : R;
+  sweep_rows<W, true>(acc, x, y, inf, sx, sy, szz, szzz, lo, hi, C, c, f);
+}
+
 // out[:, c] = D[c] + sum_r Q[r, c] over XYZZ rows (infinity rows skipped).
+// One thread per lane, the row loop inside it (the TPU's sequential grid).
 template <int W>
 __global__ void reduce_sweep_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
                                     const uint32_t* __restrict__ zz,
@@ -59,19 +199,60 @@ __global__ void reduce_sweep_kernel(const uint32_t* __restrict__ x, const uint32
 #define U32C(p) ((const uint32_t*)(p))
 #define U32(p) ((uint32_t*)(p))
 
-extern "C" cudaError_t tt_suffix_sweep(const void* x, const void* y, const void* inf,
-                                       const void* dx, const void* dy, const void* dzz,
-                                       const void* dzzz, void* sx, void* sy, void* szz,
-                                       void* szzz, int64_t R, int64_t C, const uint32_t* consts,
-                                       int W, void* stream) {
-  const int threads = 64;
-  const int64_t blocks = (C + threads - 1) / threads;
+static unsigned blocks_for(int64_t threads, int per_block) {
+  return (unsigned)((threads + per_block - 1) / per_block);
+}
+
+// Threads per block of phases 1 and 3, for the wrapper's segment count.
+extern "C" int tt_suffix_sweep_threads() { return SWEEP_THREADS; }
+
+extern "C" cudaError_t tt_suffix_totals(const void* x, const void* y, const void* inf,
+                                        const void* dx, const void* dy, const void* dzz,
+                                        const void* dzzz, void* tot, int64_t R, int64_t C,
+                                        int64_t L, int64_t S, const uint32_t* consts, int W,
+                                        void* stream) {
+  if (S < 2) return cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   switch (W) {
     case 8:
-      suffix_sweep_kernel<8><<<(unsigned)blocks, threads, 0, s>>>(
-          U32C(x), U32C(y), U32C(inf), U32C(dx), U32C(dy), U32C(dzz), U32C(dzzz), U32(sx),
-          U32(sy), U32(szz), U32(szzz), R, C, load_consts<8>(consts));
+      suffix_totals_kernel<8><<<blocks_for((S - 1) * C, SWEEP_THREADS), SWEEP_THREADS, 0, s>>>(
+          U32C(x), U32C(y), U32C(inf), U32C(dx), U32C(dy), U32C(dzz), U32C(dzzz), U32(tot), R, C,
+          L, S, load_consts<8>(consts));
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t tt_suffix_carries(const void* tot, const void* dx, const void* dy,
+                                         const void* dzz, const void* dzzz, void* cin, int64_t C,
+                                         int64_t S, const uint32_t* consts, int W, void* stream) {
+  if (S < 2) return cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (W) {
+    case 8:
+      suffix_carries_kernel<8><<<blocks_for(C, CARRY_THREADS), CARRY_THREADS, 0, s>>>(
+          U32C(tot), U32C(dx), U32C(dy), U32C(dzz), U32C(dzzz), U32(cin), C, S,
+          load_consts<8>(consts));
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t tt_suffix_emit(const void* x, const void* y, const void* inf,
+                                      const void* dx, const void* dy, const void* dzz,
+                                      const void* dzzz, const void* cin, void* sx, void* sy,
+                                      void* szz, void* szzz, int64_t R, int64_t C, int64_t L,
+                                      int64_t S, const uint32_t* consts, int W, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (W) {
+    case 8:
+      suffix_emit_kernel<8><<<blocks_for(S * C, SWEEP_THREADS), SWEEP_THREADS, 0, s>>>(
+          U32C(x), U32C(y), U32C(inf), U32C(dx), U32C(dy), U32C(dzz), U32C(dzzz), U32C(cin),
+          U32(sx), U32(sy), U32(szz), U32(szzz), R, C, L, S, load_consts<8>(consts));
       break;
     default:
       return cudaErrorInvalidValue;
@@ -85,11 +266,10 @@ extern "C" cudaError_t tt_reduce_sweep(const void* x, const void* y, const void*
                                        void* ozz, void* ozzz, int64_t R, int64_t C,
                                        const uint32_t* consts, int W, void* stream) {
   const int threads = 64;
-  const int64_t blocks = (C + threads - 1) / threads;
   cudaStream_t s = (cudaStream_t)stream;
   switch (W) {
     case 8:
-      reduce_sweep_kernel<8><<<(unsigned)blocks, threads, 0, s>>>(
+      reduce_sweep_kernel<8><<<blocks_for(C, threads), threads, 0, s>>>(
           U32C(x), U32C(y), U32C(zz), U32C(zzz), U32C(dx), U32C(dy), U32C(dzz), U32C(dzzz),
           U32(ox), U32(oy), U32(ozz), U32(ozzz), R, C, load_consts<8>(consts));
       break;

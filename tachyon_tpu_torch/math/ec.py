@@ -5,9 +5,9 @@ Port of ``tachyon_tpu/math/ec.py`` for prime-field curves with a = 0
 ``(W, *batch)`` int32 word tensors.  XYZZ is the accumulation form:
 x = X/ZZ, y = Y/ZZZ; infinity is ZZ == 0 (all-zero coordinates).
 
-``add_xyzz`` / ``dbl_xyzz`` / ``madd_xyzz`` launch the CUDA kernels K2 /
-K3 / K4 on CUDA tensors and their plain twins on CPU tensors
-(``ops/cuda_ec.py``).
+``add_xyzz`` / ``dbl_xyzz`` / ``madd_xyzz`` / ``scalar_mul`` launch the
+CUDA kernels K2 / K3 / K4 / the fused ladder on CUDA tensors and their
+plain twins on CPU tensors (``ops/cuda_ec.py``).
 """
 from __future__ import annotations
 
@@ -124,22 +124,15 @@ class SWCurve:
     # --- scalar multiplication (the MSM is in msm.py) -------------------------
     def scalar_mul(self, p: AffinePoint, scalars: torch.Tensor) -> PointXYZZ:
         """[s]P lane by lane: an MSB-first double-and-add over all Ws * 32
-        bits of the scalar words, from infinity.  Every step is a dbl (K3),
-        a mixed add (K4) and a select on the bit, with no bit skipped, so
-        the XYZZ words equal the JAX package's ``lax.scan``.
+        bits of the scalar words, from infinity, with no bit skipped, so
+        the XYZZ words equal the JAX package's ``lax.scan``.  On the card
+        it is one launch of the fused ladder (``cuda_ec.scalar_mul``: every
+        step's dbl and mixed add in registers); on the CPU its plain twin
+        runs a dbl, a mixed add and a select on the bit per step.
 
         scalars: (Ws, *batch) plain (non-Montgomery) int32 scalar words."""
-        F = self.F
-        q = AffinePoint(p.x.contiguous(), p.y.contiguous(), p.inf.contiguous())
-        nbits = scalars.shape[0] * limbs.WORD_BITS
-        acc = self.infinity_xyzz(p.inf.shape)
-        for i in range(nbits):
-            b = nbits - 1 - i
-            bit = ((scalars[b // limbs.WORD_BITS] >> (b % limbs.WORD_BITS)) & 1) != 0
-            acc = self.dbl_xyzz(acc)
-            added = self.madd_xyzz(acc, q)
-            acc = PointXYZZ(*(F.select(bit, a, c) for a, c in zip(added, acc)))
-        return acc
+        return PointXYZZ(*cuda_ec.scalar_mul(self.F.spec, p.x.contiguous(), p.y.contiguous(),
+                                             p.inf.contiguous(), scalars.contiguous()))
 
     def random_affine(self, n: int, rng=None):
         """n pseudo-random curve points [s_i]G, with the s_i drawn as the JAX

@@ -11,7 +11,8 @@ into C lanes x R rows, the K5 sweep (per-lane suffix sums from a blind D),
 a Hillis-Steele scan of the lane totals (K2), the T-gather at the bucket
 starts (K2), the K6 sweep and a fold (K2); Horner across windows (K3, K2).
 As in the JAX package, n <= 128 takes the naive path instead: a batched
-double-and-add (``scalar_mul``: K3, K4) and a tree reduce (K2).
+double-and-add (``scalar_mul``: one launch of the fused ladder) and a tree
+reduce (K2).
 
 The XLA steps that are not Pallas kernels map to PyTorch calls:
 ``lax.sort_key_val`` -> ``torch.sort(stable=True)``, ``jnp.take`` ->
@@ -182,8 +183,8 @@ def _tree_reduce(curve: SWCurve, pts: PointXYZZ, axis_len: int) -> PointXYZZ:
 
 
 def _msm_naive(curve: SWCurve, points: AffinePoint, scalars: torch.Tensor) -> PointXYZZ:
-    """Small-n MSM: a batched double-and-add (``scalar_mul``, K3 + K4) and a
-    tree reduce."""
+    """Small-n MSM: a batched double-and-add (``scalar_mul``, the fused
+    ladder) and a tree reduce."""
     n = scalars.shape[1]
     return _tree_reduce(curve, curve.scalar_mul(points, scalars), n)
 

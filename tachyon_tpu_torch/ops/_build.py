@@ -36,7 +36,10 @@ LAUNCHERS = {
     "tt_add_xyzz": [_P] * 12 + [_I64, _P, ctypes.c_int, _P],
     "tt_dbl_xyzz": [_P] * 8 + [_I64, _P, ctypes.c_int, _P],
     "tt_madd_xyzz": [_P] * 11 + [_I64, _P, ctypes.c_int, _P],
-    "tt_suffix_sweep": [_P] * 11 + [_I64, _I64, _P, ctypes.c_int, _P],
+    "tt_scalar_mul_xyzz": [_P] * 8 + [_I64, ctypes.c_int, _P, ctypes.c_int, _P],
+    "tt_suffix_totals": [_P] * 8 + [_I64] * 4 + [_P, ctypes.c_int, _P],
+    "tt_suffix_carries": [_P] * 6 + [_I64] * 2 + [_P, ctypes.c_int, _P],
+    "tt_suffix_emit": [_P] * 12 + [_I64] * 4 + [_P, ctypes.c_int, _P],
     "tt_reduce_sweep": [_P] * 12 + [_I64, _I64, _P, ctypes.c_int, _P],
 }
 

@@ -1,5 +1,5 @@
 """K2, K3 and K4: whole XYZZ point add, double and mixed add as
-hand-written CUDA kernels.
+hand-written CUDA kernels, and the fused double-and-add ladder.
 
 Replace the Pallas kernels of ``tachyon_tpu/ops/pallas_ec.py``:
 
@@ -11,27 +11,35 @@ Replace the Pallas kernels of ``tachyon_tpu/ops/pallas_ec.py``:
 * K4 ``_madd_call`` (``pl.pallas_call`` at line 257, body ``_madd_body``,
   wrapper ``madd_xyzz``): complete madd-2008-s, XYZZ + affine with a q_inf
   flag row; p = infinity gives q lifted with zz = zzz = mont(1).
+* ``scalar_mul``: K4 redesigned for the card, the whole MSB-first
+  double-and-add ladder of ``SWCurve.scalar_mul`` (the JAX package's
+  ``lax.scan`` over K3, K4 and a select per bit) in one launch
+  (``csrc/ladder.cu``), with the same words.
 
-Kernels (``csrc/ec.cu``, ``csrc/xyzz.cuh``): one thread per point; each
-coordinate is a word-major ``(W, n)`` array so the loads of a warp coalesce.
-Bound on the card: an add is 14 field multiplies (~1.9k word products) and a
-mixed add 10 (~1.4k) against 384 and 324 bytes moved, so both are bound by
-integer multiplies once there are enough points to fill 132 SMs; the MSM
-path calls K2 on 1 to 131k points, and below ~100k points it is bound by
-occupancy and launch latency.  ``scalar_mul`` calls K3 and K4 on every lane
-of the batch (2^20 in KZG's setup).  The design keeps a whole point in
-registers (no shared memory) and evaluates the same formulas and case order
-as the TPU kernel, so results are bit-identical.
+Kernels (``csrc/ec.cu``, ``csrc/ladder.cu``, ``csrc/xyzz.cuh``): one thread
+per point; each coordinate is a word-major ``(W, n)`` array so the loads of
+a warp coalesce.  Bound on the card: an add is 14 field multiplies (~1.9k
+word products) and a mixed add 10 (~1.4k) against 384 and 324 bytes moved,
+so both are bound by integer multiplies once there are enough points to
+fill 132 SMs; the MSM path calls K2 on 1 to 131k points, and below ~100k
+points it is bound by occupancy and launch latency.  The ladder keeps the
+point and its accumulator in registers for all 256 bits, so it moves ~230
+bytes per lane and is bound by its multiplies alone.  The designs evaluate
+the same formulas and case order as the TPU kernel, so results are
+bit-identical.  The standalone K3 and K4 stay: the MSM's Horner doublings
+launch K3, and ``SWCurve.madd_xyzz`` launches K4.
 
-``add_xyzz_plain`` / ``dbl_xyzz_plain`` / ``madd_xyzz_plain`` are the plain
-PyTorch twins (the CPU path, and the reference the kernels are held against
-on the card); they mirror ``SWCurve._add_xyzz_jnp`` / ``_dbl_xyzz_jnp`` /
-``_madd_xyzz_jnp``.
+``add_xyzz_plain`` / ``dbl_xyzz_plain`` / ``madd_xyzz_plain`` /
+``scalar_mul_plain`` are the plain PyTorch twins (the CPU path, and the
+reference the kernels are held against on the card); they mirror
+``SWCurve._add_xyzz_jnp`` / ``_dbl_xyzz_jnp`` / ``_madd_xyzz_jnp`` /
+``scalar_mul``.
 """
 from __future__ import annotations
 
 import torch
 
+from tachyon_tpu_torch.fields.limbs import WORD_BITS
 from tachyon_tpu_torch.fields.spec import FieldSpec
 from tachyon_tpu_torch.ops import _build, mont
 from tachyon_tpu_torch.ops.cuda_mont import check_cuda, consts_ptr
@@ -131,6 +139,22 @@ def madd_xyzz_plain(f: FieldSpec, p, qx, qy, q_inf):
     return out
 
 
+def scalar_mul_plain(f: FieldSpec, px, py, pinf, scalars):
+    """[s]P lane by lane: MSB-first over all Ws * 32 bits of the scalar
+    words, from infinity, a double, a mixed add and a select on the bit at
+    every step, as the JAX package's ``scalar_mul`` scan.  pinf: bool."""
+    nbits = scalars.shape[0] * WORD_BITS
+    zero = torch.zeros_like(px)
+    acc = (zero, zero.clone(), zero.clone(), zero.clone())
+    for i in range(nbits):
+        b = nbits - 1 - i
+        bit = ((scalars[b // WORD_BITS] >> (b % WORD_BITS)) & 1) != 0
+        acc = dbl_xyzz_plain(f, acc)
+        added = madd_xyzz_plain(f, acc, px, py, pinf)
+        acc = _pick(bit, added, acc)
+    return acc
+
+
 def _flat(f: FieldSpec, coords):
     """(W, *batch) coords -> contiguous (W, n) views, batch shape, n."""
     batch = coords[0].shape[1:]
@@ -189,6 +213,29 @@ def madd_xyzz(f: FieldSpec, p, qx, qy, qinf):
     return tuple(o.view(-1, *batch) for o in outs)
 
 
+def scalar_mul(f: FieldSpec, px, py, pinf, scalars):
+    """[s]P: px, py (W, *batch) affine coords, pinf batch-shaped infinity
+    flags (bool or int), scalars (Ws, *batch) plain int32 words; returns
+    4 XYZZ coords (W, *batch).  CPU tensors take ``scalar_mul_plain``; CUDA
+    tensors launch the fused ladder (one launch) or raise."""
+    if px.device.type == "cpu":
+        return scalar_mul_plain(f, px, py, pinf.to(torch.bool), scalars)
+    coords, batch, n = _flat(f, [px, py])
+    if pinf.shape != batch or scalars.shape[1:] != batch:
+        raise ValueError(f"pinf {tuple(pinf.shape)} and scalars {tuple(scalars.shape)} must "
+                         f"have the batch shape {tuple(batch)}")
+    flags = pinf.to(torch.int32).contiguous()
+    check_cuda(f, flags, scalars)
+    outs = [torch.empty_like(coords[0]) for _ in range(4)]
+    if n:
+        _build.launch("tt_scalar_mul_xyzz",
+                      *(t.data_ptr() for t in coords + [flags, scalars] + outs), n,
+                      scalars.shape[0], consts_ptr(f), coords[0].shape[0])
+        scalar_mul.launches += 1
+    return tuple(o.view(-1, *batch) for o in outs)
+
+
 add_xyzz.launches = 0
 dbl_xyzz.launches = 0
 madd_xyzz.launches = 0
+scalar_mul.launches = 0

@@ -12,13 +12,25 @@ Replace the Pallas kernels of ``tachyon_tpu/ops/pallas_msm.py``:
   the q = infinity branch of add-2008-s.
 
 The TPU walks the rows in a sequential grid and keeps the lane accumulators
-in VMEM scratch.  Blocks on Hopper run in no order, so the row walk becomes
-a loop inside one thread per lane (``csrc/msm_sweeps.cu``), with the
-accumulator in registers.  Bound on the card: K5 at 2^22 points is 2^22
-mixed adds (~1.4k word products each) over 4096 lanes, i.e. only 4096
-threads on 132 SMs, so it is latency- and occupancy-bound, not
-memory-bound (it streams 64 bytes in and 128 bytes out per point).  Spreading
-one lane's rows over several threads is later work.
+in VMEM scratch.  Blocks on Hopper run in no order.  K6 turns the row walk
+into a loop inside one thread per lane (``csrc/msm_sweeps.cu``).  K5 did
+the same until it was redesigned: at 2^22 points that is 4096 threads on
+132 SMs, each a chain of 1024 mixed adds, so it ran 29x above its bound
+(integer multiplies).  K5 now cuts each lane's R rows into S segments and
+runs a two-level suffix scan in three launches (segment totals from D;
+carries Cin[s] = (Cin[s+1] + T[s+1]) + (-D) with the complete add, one
+thread per lane; every row emitted from Cin[s]), with S x C threads in the
+two sweeping launches.  ``segments`` picks S.
+
+**K5's words differ from the TPU kernel's; its points do not.**  The
+segments change the order of additions, so every row outside the top
+segment holds other XYZZ coordinates (X, Y, ZZ, ZZZ scaled by another
+lambda^2, lambda^3) of the same point D + sum_{r' >= r} P[r', c].  The top
+segment starts from D as before and keeps the TPU's words.  The MSM only
+adds these rows, so its result does not move.
+``suffix_sweep_segmented_plain`` is the twin of the three phases, word for
+word; ``suffix_sweep_plain`` is the sequential twin of the TPU kernel,
+equal to it as points.
 
 The plain twins follow ``suffix_sweep_jnp`` / ``reduce_sweep_jnp``: row by
 row with the complete formulas.  From a blind D they agree bit for bit with
@@ -28,22 +40,81 @@ flags ``(R, 1, C)``, blinds and totals ``(W, C)``.
 """
 from __future__ import annotations
 
+import math
+from typing import NamedTuple
+
 import torch
 
 from tachyon_tpu_torch.fields.spec import FieldSpec
-from tachyon_tpu_torch.ops import _build
+from tachyon_tpu_torch.ops import _build, mont
 from tachyon_tpu_torch.ops.cuda_ec import add_xyzz_plain, madd_xyzz_plain
 from tachyon_tpu_torch.ops.cuda_mont import check_cuda, consts_ptr
 
 
 def suffix_sweep_plain(f: FieldSpec, x, y, inf, d):
-    """Plain twin of K5: rows bottom-up with the complete mixed add."""
+    """Plain twin of K5 as the TPU computes it: rows bottom-up with the
+    complete mixed add."""
     R = x.shape[0]
     acc = tuple(d)
     rows = [None] * R
     for r in range(R - 1, -1, -1):
         acc = madd_xyzz_plain(f, acc, x[r], y[r], inf[r, 0] != 0)
         rows[r] = acc
+    return tuple(torch.stack([row[k] for row in rows]) for k in range(4))
+
+
+SWEEP_BLOCKS_PER_SM = 2   # where S stops growing
+SWEEP_MIN_SEGMENTS = 4    # below this, one segment
+
+
+def segments(R: int, C: int, sms: int, threads: int) -> int:
+    """K5's segment count S for R rows x C lanes on a card of ``sms`` SMs,
+    with ``threads`` per block in phases 1 and 3 (the kernel library's
+    ``tt_suffix_sweep_threads``).
+
+    A thread of phases 1 and 3 sweeps R / S rows twice, and each segment
+    adds two complete adds to the serial carry chain of phase 2, which cost
+    about 8 rows on the H100 (PERF.md).  So 2R / S + 8S rows is least
+    near S = sqrt(R) / 2.  Below 4 segments the carries eat the gain
+    (2 never gains: its threads sweep R rows as one does), so S = 1 there:
+    R < 64.  S also stops where phases 1 and 3 hold two blocks per SM:
+    beyond that they measured no faster (bound by the field multiply's
+    rate), while the carries grow.  Then cut to ceil(R / L) for
+    L = ceil(R / S) rows per segment, so that no segment is empty."""
+    fill = SWEEP_BLOCKS_PER_SM * sms * threads // max(C, 1)
+    S = min(math.isqrt(R) // 2, fill)
+    if S < SWEEP_MIN_SEGMENTS:
+        return 1
+    L = -(-R // S)
+    return -(-R // L)
+
+
+def suffix_sweep_segmented_plain(f: FieldSpec, x, y, inf, d, S: int):
+    """Plain twin of K5's three phases with S segments of ceil(R / S) rows
+    (the top one ragged), word for word: segment totals T[s] from D, carries
+    Cin[S-1] = D, Cin[s] = (Cin[s+1] + T[s+1]) + (-D) with the complete
+    add, then every row of segment s from Cin[s].  Equal to
+    ``suffix_sweep_plain`` as points; the top segment's words are equal."""
+    R = x.shape[0]
+    L = -(-R // S)
+    bounds = [(s * L, min((s + 1) * L, R)) for s in range(S)]
+
+    def sweep(acc, lo, hi, rows=None):
+        for r in range(hi - 1, lo - 1, -1):
+            acc = madd_xyzz_plain(f, acc, x[r], y[r], inf[r, 0] != 0)
+            if rows is not None:
+                rows[r] = acc
+        return acc
+
+    d = tuple(d)
+    nd = (d[0], mont.neg(f, d[1]), d[2], d[3])
+    cin = [d] * S
+    for s in range(S - 2, -1, -1):
+        total = sweep(d, *bounds[s + 1])
+        cin[s] = add_xyzz_plain(f, add_xyzz_plain(f, cin[s + 1], total), nd)
+    rows = [None] * R
+    for s in range(S):
+        sweep(cin[s], *bounds[s], rows)
     return tuple(torch.stack([row[k] for row in rows]) for k in range(4))
 
 
@@ -70,21 +141,55 @@ def _check_sweep(f: FieldSpec, pts, d, inf=None):
     return R, W, C
 
 
+class SweepPlan(NamedTuple):
+    """K5's launches on one input: the outputs, the scratch they write, the
+    segment count and the (launcher, args) of the three phases in order."""
+    outs: tuple
+    scratch: tuple
+    S: int
+    launches: list
+
+
+def suffix_sweep_plan(f: FieldSpec, x, y, inf, d, S: int | None = None) -> SweepPlan:
+    """Allocate K5's outputs and scratch for CUDA inputs and list its three
+    launches (none for an empty input); ``suffix_sweep`` runs them.  S
+    defaults to ``segments``; a given S is cut to 1 .. R with no segment
+    empty (``chip_smoke.py`` times the kernel at S = 1 against it)."""
+    R, W, C = _check_sweep(f, (x, y), d, inf)
+    outs = tuple(torch.empty_like(x) for _ in range(4))
+    if not (R and C):
+        return SweepPlan(outs, (), 0, [])
+    if S is None:
+        S = segments(R, C, torch.cuda.get_device_properties(x.device).multi_processor_count,
+                     _build.library().tt_suffix_sweep_threads())
+    L = -(-R // max(1, min(R, S)))
+    S = -(-R // L)
+    tot, cin = (torch.empty((S - 1, 4, W, C), dtype=x.dtype, device=x.device) for _ in range(2))
+    dp = [t.data_ptr() for t in d]
+    consts = consts_ptr(f)
+    launches = [
+        ("tt_suffix_totals", (x.data_ptr(), y.data_ptr(), inf.data_ptr(), *dp, tot.data_ptr(),
+                              R, C, L, S, consts, W)),
+        ("tt_suffix_carries", (tot.data_ptr(), *dp, cin.data_ptr(), C, S, consts, W)),
+        ("tt_suffix_emit", (x.data_ptr(), y.data_ptr(), inf.data_ptr(), *dp, cin.data_ptr(),
+                            *(o.data_ptr() for o in outs), R, C, L, S, consts, W)),
+    ]
+    return SweepPlan(outs, (tot, cin), S, launches)
+
+
 def suffix_sweep(f: FieldSpec, x, y, inf, d):
     """x, y: (R, W, C) sorted affine coords; inf: (R, 1, C) int32 flags;
     d: 4-tuple of (W, C) blind coords.  Returns 4 arrays (R, W, C) with
     suffix[r, :, c] = D + sum_{r' >= r} P[r', c].  CPU tensors take
-    ``suffix_sweep_plain``; CUDA tensors launch K5 or raise."""
+    ``suffix_sweep_plain``; CUDA tensors launch K5's three phases or raise."""
     if x.device.type == "cpu":
         return suffix_sweep_plain(f, x, y, inf, d)
-    R, W, C = _check_sweep(f, (x, y), d, inf)
-    outs = [torch.empty_like(x) for _ in range(4)]
-    if R and C:
-        _build.launch("tt_suffix_sweep", x.data_ptr(), y.data_ptr(), inf.data_ptr(),
-                      *(t.data_ptr() for t in d), *(o.data_ptr() for o in outs),
-                      R, C, consts_ptr(f), W)
+    plan = suffix_sweep_plan(f, x, y, inf, d)
+    for name, args in plan.launches:
+        _build.launch(name, *args)
+    if plan.launches:
         suffix_sweep.launches += 1
-    return tuple(outs)
+    return plan.outs
 
 
 def reduce_sweep(f: FieldSpec, xyzz, d):
