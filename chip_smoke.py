@@ -8,18 +8,24 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device: requires CUDA and prints the card's name and power limit;
 2. build: compiles the CUDA kernels from tachyon_tpu_torch/csrc (one nvcc
    per source, all started together);
-3. kernels: each of K1-K6 and the fused scalar_mul ladder against its
-   plain PyTorch twin on the card, bit-exact on the words, both timed with
-   CUDA events, beside its bound: the larger of its bytes over 3.35 TB/s
-   and its 32x32-bit word products over 64 per clock per SM x 132 SMs x
-   the card's max SM clock.  K5, redesigned into three launches over S row
-   segments, is also held as points, over all 1024 rows of a 256-lane
-   slice, against the sequential twin of the TPU kernel, with its segment
-   count and the time of each launch, and timed at the smaller MSMs'
-   layouts against one segment (S = 1);
+3. kernels: each of K1-K6, the fused scalar_mul ladder and the lane scan
+   and fold against its plain PyTorch twin on the card, bit-exact on the
+   words, both timed with CUDA events, beside its bound: the larger of its
+   bytes over 3.35 TB/s and its 32x32-bit word products over 64 per clock
+   per SM x 132 SMs x the card's max SM clock.  K5, redesigned into three
+   launches over S row segments, is also held as points, over all 1024
+   rows of a 256-lane slice, against the sequential twin of the TPU kernel,
+   with its segment count and the time of each launch, and timed at the
+   smaller MSMs' layouts against one segment (S = 1).  K6, redesigned into
+   segment partials and a tree combine, is held as points against the
+   sequential twin at both main paths' shapes, with each launch's time and
+   the chain combine's, and timed by segment count at three layouts.  The
+   lane scan (C = 4096, 512) and fold (512) are also held against, and
+   timed beside, the loop of K2 launches they replace;
 4. MSM: the BN254 G1 MSM at n = 2^22 (msm + to_affine) on the point set of
    bench.py (256 exact multiples of G, seed 42, tiled; 254-bit scalars),
-   checked against the host-exact point, with the kernels' launch counts;
+   checked against the host-exact point, timed MSM_RUNS times, with the
+   kernels' launch counts (K2: K2_PER_WINDOW a window);
 5. KZG: the BN254 KZG path at n = 2^20 (unsafe setup, commit,
    commit_lagrange, open, verify; a 64-coefficient commit on the naive MSM
    path; Pedersen setup(64) + commit), each step checked against host ints,
@@ -67,9 +73,16 @@ SIZES = {
     "k5": (1024, 4096, 16, 256),  # K5 (R, C), top rows and lanes its plain twins run
     # K5 (R, C) of smaller MSMs: n = 2^14, 2^15 - 2^9, 2^16, 2^18
     "k5_small": ((32, 512), (64, 512), (16, 4096), (64, 4096)),
-    "k6": (256, 512),       # K6 (R2, C2)
+    # K6 (R2, C2): 2^22 (c = 17) and 2^20 (c = 15); then the S sweep's,
+    # R2 = 2^c / 512 for c = 13, 15, 17
+    "k6": ((256, 512), (64, 512)),
+    "k6_sweep": ((16, 512), (64, 512), (256, 512)),
+    "scan": (4096, 512),    # lane scan widths: C for n >= 2^15 (both paths), and below
+    "fold": 512,            # lane fold width C2
 }
 K5_SMALL_S = (1, 2, 4, 8)  # segment counts timed beside the one K5 picks there
+K6_S = (1, 2, 4, 8, 16, 32, 64)  # K6 segment counts timed (64 at R = 256 only)
+MSM_RUNS = 5  # timed runs of the 2^22 MSM after the checked one
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, at 700 W
 IMAD_PER_CLK_SM = 64       # 32-bit integer multiply-adds per clock per SM, cc 9.0
 SMS = 132
@@ -93,14 +106,22 @@ KERNELS = {
                      "tachyon_tpu/ops/pallas_msm.py:147"),
     "reduce_sweep": (cuda_msm.reduce_sweep, "tachyon_tpu_torch/csrc/msm_sweeps.cu",
                      "tachyon_tpu/ops/pallas_msm.py:201"),
+    "lane_suffix_scan": (cuda_ec.lane_suffix_scan, "tachyon_tpu_torch/csrc/lanes.cu",
+                         "tachyon_tpu/ops/pallas_ec.py:209"),
+    "lane_fold": (cuda_ec.lane_fold, "tachyon_tpu_torch/csrc/lanes.cu",
+                  "tachyon_tpu/ops/pallas_ec.py:209"),
 }
 
-# what the fused ladder replaces beside K4: K3 and the scan's select per bit
+# what the fused ladder replaces beside K4: K3 and the scan's select per
+# bit; what the lane kernels replace beside K2: the JAX loops over it
 ALSO_REPLACES = {"scalar_mul_xyzz": ["tachyon_tpu/ops/pallas_ec.py:232",
-                                     "tachyon_tpu/math/ec.py:313-338"]}
-# K5 at (1024, 8, 4096) with one thread per lane, before the segments
-# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md)
+                                     "tachyon_tpu/math/ec.py:313-338"],
+                 "lane_suffix_scan": ["tachyon_tpu/math/msm.py:196-206"],
+                 "lane_fold": ["tachyon_tpu/math/msm.py:209-222"]}
+# K5 at (1024, 8, 4096) and K6 at (256, 8, 512) with one thread per lane,
+# before the segments (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md)
 K5_OLD_MS = 8.4759
+K6_OLD_MS = 2.2606
 
 
 def log(msg: str) -> None:
@@ -244,11 +265,8 @@ def k5_small(f, base_x, base_y, d1, g, device) -> list:
         plans += [cuda_msm.suffix_sweep_plan(f, x, y, inf, dc, S) for S in K5_SMALL_S]
         ms = {}
         for plan in plans:
-            def run(plan=plan):
-                for name, args in plan.launches:
-                    _build.launch(name, *args)
-            run()
-            ms.setdefault(plan.S, cuda_ms(run, 20))
+            cuda_msm.run_plan(plan)
+            ms.setdefault(plan.S, cuda_ms(lambda plan=plan: cuda_msm.run_plan(plan), 20))
         one = plans[1].outs
         S = plans[0].S
         if word_err(one, cuda_msm.suffix_sweep_plain(f, x, y, inf, dc)) != 0:
@@ -267,6 +285,26 @@ def k5_small(f, base_x, base_y, d1, g, device) -> list:
         out.append({"shape": [R, 8, C], "S": S, "ms": ms[S],
                     "ms_by_S": {str(k): v for k, v in sorted(ms.items())}})
     return out
+
+
+def k2_inputs(f, base_x, base_y, n: int):
+    """K2's check inputs on n lanes: P has zz != 1 (a plain doubling of
+    affine points); by lane % 7: 1 P = Q, 2 P = -Q, 3 p = inf, 4 q = inf,
+    5 both, else generic.  Returns p, q and the field multiplies the lanes
+    need: 14 for an add, 4 + 9 where P = Q doubles, 4 where P = -Q, none
+    where an input is infinity."""
+    device = base_x.device
+    one = mont.ones(f, (n,), device)
+    lane = torch.arange(n, device=device)
+    p = cuda_ec.dbl_xyzz_plain(f, (tile(base_x, n), tile(base_y, n), one, one))
+    q = tuple(torch.roll(t, 1, dims=1) for t in p)
+    q = list(mont.select((lane % 7 == 1) | (lane % 7 == 2), pc, qc) for pc, qc in zip(p, q))
+    q[1] = mont.select(lane % 7 == 2, mont.neg(f, p[1]), q[1])
+    zero = torch.zeros_like(p[0])
+    p = tuple(mont.select((lane % 7 == 3) | (lane % 7 == 5), zero, t) for t in p)
+    q = tuple(mont.select((lane % 7 == 4) | (lane % 7 == 5), zero, t) for t in q)
+    cls = torch.bincount(lane % 7, minlength=7).tolist()
+    return p, q, 14 * (cls[0] + cls[6]) + 13 * cls[1] + 4 * cls[2]
 
 
 def lifted(f, x, y, lam):
@@ -296,25 +334,15 @@ def phase_kernels(device, base_x, base_y, clock_hz, mm, results):
         del want
 
     # K2 on the T-gather width at c = 17: 2^17 - 1 lanes, with P = Q, P = -Q
-    # and infinity lanes.  P has zz != 1 (a plain doubling of affine points).
+    # and infinity lanes
     n = SIZES["k2"]
-    one = mont.ones(fq, (n,), device)
+    p, q, muls = k2_inputs(fq, base_x, base_y, n)
     lane = torch.arange(n, device=device)
-    p = cuda_ec.dbl_xyzz_plain(fq, (tile(base_x, n), tile(base_y, n), one, one))
-    q = tuple(torch.roll(t, 1, dims=1) for t in p)
-    q = list(mont.select((lane % 7 == 1) | (lane % 7 == 2), pc, qc) for pc, qc in zip(p, q))
-    q[1] = mont.select(lane % 7 == 2, mont.neg(fq, p[1]), q[1])
     zero = torch.zeros_like(p[0])
-    p = tuple(mont.select((lane % 7 == 3) | (lane % 7 == 5), zero, t) for t in p)
-    q = tuple(mont.select((lane % 7 == 4) | (lane % 7 == 5), zero, t) for t in q)
     got = cuda_ec.add_xyzz(fq, p, q)
     want = cuda_ec.add_xyzz_plain(fq, p, q)
     if not bool(mont.is_zero(fq, got[2])[lane % 7 == 2].all()):
         raise AssertionError("add_xyzz: P + (-P) is not infinity")
-    # multiplies the lanes need: 14 for an add, 4 + 9 where P = Q doubles,
-    # 4 where P = -Q, none where an input is infinity
-    cls = torch.bincount(lane % 7, minlength=7).tolist()
-    muls = 14 * (cls[0] + cls[6]) + 13 * cls[1] + 4 * cls[2]
     check("add_xyzz", got, want, cuda_ms(lambda: cuda_ec.add_xyzz(fq, p, q), 20),
           cuda_ms(lambda: cuda_ec.add_xyzz_plain(fq, p, q), 2), f"4 x (8, {n})",
           f"4 x (8, {n})", (12 * 32 * n, mm * muls, clock_hz), results)
@@ -450,22 +478,199 @@ def phase_kernels(device, base_x, base_y, clock_hz, mm, results):
           work5, results)
     del plan
 
-    # K6 at R = 256, C = 512 (the c = 17 bucket reduce) over XYZZ rows cut
-    # from the suffix sums, with infinity entries.
-    R6, C6 = SIZES["k6"]
-    rows = tuple(t[:R6, :, :C6].contiguous() for t in suf)
-    hole = (torch.rand((R6, 1, C6), generator=g, device=device) < 0.05)
-    rows = tuple(torch.where(hole, 0, t) for t in rows)
-    dc6 = tuple(_bcast(d2, (C6,)))
-    got6 = cuda_msm.reduce_sweep(fq, rows, dc6)
-    t0 = time.perf_counter()
-    want6 = cuda_msm.reduce_sweep_plain(fq, rows, dc6)
-    torch.cuda.synchronize()
-    plain6 = (time.perf_counter() - t0) * 1e3
-    live6 = R6 * C6 - int(hole.sum())
-    check("reduce_sweep", got6, want6, cuda_ms(lambda: cuda_msm.reduce_sweep(fq, rows, dc6), 10),
-          plain6, f"({R6}, 8, {C6})", f"({R6}, 8, {C6})",
-          (4 * 32 * R6 * C6 + 2 * 4 * 32 * C6, mm * 14 * live6, clock_hz), results)
+    # K6 at the two main paths' (R2, C2), with its segment sweep, over XYZZ
+    # rows cut from the suffix sums; then the lane scan and fold over lanes
+    # cut from them
+    k6_check(fq, suf, d2, g, clock_hz, mm, results)
+    for C in SIZES["scan"]:
+        lane_check(fq, "lane_suffix_scan", suf, C, g, clock_hz, mm, results)
+    lane_check(fq, "lane_fold", suf, SIZES["fold"], g, clock_hz, mm, results)
+
+
+def k6_rows(suf, R: int, C: int, L: int, g):
+    """K6 rows (R, W, C) cut from K5's suffix sums (XYZZ, zz != 1) with 5%
+    infinity holes.  Lane 0: segment 1 (rows L .. 2L - 1) all at infinity,
+    so T[1] = D; lane 1: segment 1 holds segment 0's rows, so the combine
+    adds two equal partial sums (a double)."""
+    hole = torch.rand((R, 1, C), generator=g, device=suf[0].device) < 0.05
+    rows = [torch.where(hole, 0, t[:R, :, :C]) for t in suf]
+    n1 = min(2 * L, R) - L
+    for t in rows:
+        t[L:L + n1, :, 0] = 0
+        t[L:L + n1, :, 1] = t[:n1, :, 1]
+    return tuple(rows)
+
+
+def k6_work(rows, clock_hz, mm):
+    """K6's bytes (rows and D read, the totals written) and the field
+    multiplies its live rows need (14 each)."""
+    R, _, C = rows[0].shape
+    live = int((rows[2] != 0).any(dim=1).sum())  # zz != 0
+    return (4 * 32 * R * C + 2 * 4 * 32 * C, mm * 14 * live, clock_hz)
+
+
+def k6_check(f, suf, d2, g, clock_hz, mm, results) -> None:
+    """K6 at each (R, C) of SIZES["k6"] at the segment count it picks: word
+    for word against the segmented twin, as points against the sequential
+    twin, each phase timed, the chain combine (one thread per lane) timed
+    as the tree's rival; then every S of K6_S at SIZES["k6_sweep"]."""
+    sms = torch.cuda.get_device_properties(suf[0].device).multi_processor_count
+    lib = _build.library()
+    threads = lib.tt_reduce_sweep_threads()
+    info = {"shapes": []}
+    for R, C in SIZES["k6"]:
+        S = cuda_msm.reduce_segments(R, C, sms, threads)
+        L = -(-R // S)
+        F = cuda_msm.combine_fan(S, lib.tt_reduce_combine_threads())
+        rows = k6_rows(suf, R, C, L, g)
+        dc = tuple(_bcast(d2, (C,)))
+        got = cuda_msm.reduce_sweep(f, rows, dc)
+        want, plain_ms = timed_once(
+            lambda: cuda_msm.reduce_sweep_segmented_plain(f, rows, dc, S, F))
+        seq = cuda_msm.reduce_sweep_plain(f, rows, dc)
+        if not bool(same_points(f, got, seq).all()):
+            raise AssertionError(f"reduce_sweep at ({R}, 8, {C}): totals differ as points "
+                                 f"from the sequential twin")
+        plan = cuda_msm.reduce_sweep_plan(f, rows, dc)
+        phase_ms = [cuda_ms(lambda a=args, nm=name: _build.launch(nm, *a), 20)
+                    for name, args in plan.launches]
+        chain_ms = None
+        if plan.S > 1:  # the chain combine, one thread per lane, as the tree's rival
+            chain = cuda_msm.reduce_sweep_plan(f, rows, dc, S, 1)
+            cuda_msm.run_plan(chain)
+            if not bool(same_points(f, chain.outs, seq).all()):
+                raise AssertionError(f"reduce_sweep at ({R}, 8, {C}): the chain combine's "
+                                     f"totals differ as points from the sequential twin")
+            combine, combine_args = chain.launches[1]
+            chain_ms = cuda_ms(lambda: _build.launch(combine, *combine_args), 20)
+        k6_ms = cuda_ms(lambda: cuda_msm.reduce_sweep(f, rows, dc), 20)
+        work = k6_work(rows, clock_hz, mm)
+        log(f"[k6] ({R}, 8, {C}): S={plan.S} segments of {L} rows, F={F} "
+            f"threads per lane; each launch (partials, then the tree combine) {phase_ms} ms, "
+            f"the chain combine {chain_ms} ms; whole {k6_ms:.4f} ms (one thread per lane "
+            f"before: {K6_OLD_MS} ms at (256, 8, 512); bound {bound_ms(*work)[0]:.4f} ms); "
+            f"equal to the segmented twin word for word, to the sequential twin as points")
+        info["shapes"].append({"shape": [R, 8, C], "S": plan.S, "phase_ms": phase_ms,
+                               "chain_combine_ms": chain_ms, "ms": k6_ms})
+        check("reduce_sweep", got, want, k6_ms, plain_ms, f"({R}, 8, {C})", f"({R}, 8, {C})",
+              work, results)
+    # no rows (the last shape's lanes): D itself, with no launch
+    n = cuda_msm.reduce_sweep.launches
+    if word_err(cuda_msm.reduce_sweep(f, tuple(t[:0] for t in rows), dc), dc) != 0:
+        raise AssertionError("reduce_sweep with no rows: the totals are not D")
+    if cuda_msm.reduce_sweep.launches != n:
+        raise AssertionError("reduce_sweep with no rows launched a kernel")
+    info["sweep"] = [k6_sweep(f, suf, d2, R, C, sms, threads, g) for R, C in SIZES["k6_sweep"]]
+    results["reduce_sweep_segments"] = info
+
+
+def k6_sweep(f, suf, d2, R: int, C: int, sms: int, threads: int, g) -> dict:
+    """K6 at (R, 8, C) at the S it picks and each S of K6_S up to R (64
+    only at R >= 256), timed (CUDA events, 20 calls); every S's totals
+    equal as points to S = 1's, S = 1's word for word to the sequential
+    twin."""
+    S0 = cuda_msm.reduce_segments(R, C, sms, threads)
+    rows = k6_rows(suf, R, C, -(-R // S0), g)
+    dc = tuple(_bcast(d2, (C,)))
+    Ss = [S for S in K6_S if S <= R and (S < 64 or R >= 256)]
+    plans = [cuda_msm.reduce_sweep_plan(f, rows, dc, S) for S in [S0] + Ss]
+    ms = {}
+    for plan in plans:
+        cuda_msm.run_plan(plan)
+        ms.setdefault(plan.S, cuda_ms(lambda plan=plan: cuda_msm.run_plan(plan), 20))
+    one = next(p for p in plans if p.S == 1).outs
+    if word_err(one, cuda_msm.reduce_sweep_plain(f, rows, dc)) != 0:
+        raise AssertionError(f"reduce_sweep at ({R}, {C}), S = 1: words differ from the "
+                             f"sequential twin")
+    for plan in plans:
+        if not bool(same_points(f, plan.outs, one).all()):
+            raise AssertionError(f"reduce_sweep at ({R}, {C}): S = {plan.S} and S = 1 differ "
+                                 f"as points")
+    S = plans[0].S
+    log(f"[k6-sweep] ({R}, 8, {C}): picked S={S} {ms[S]:.4f} ms; by S "
+        + ", ".join(f"{k}: {v:.4f}" for k, v in sorted(ms.items())))
+    return {"shape": [R, 8, C], "S": S, "ms": ms[S],
+            "ms_by_S": {str(k): v for k, v in sorted(ms.items())}}
+
+
+def lane_inputs(f, suf, C: int, g, eq, neg):
+    """(W, C) XYZZ lanes cut from row 0 of K5's suffix sums (zz != 1), 5%
+    at infinity; lane eq[1] := lane eq[0] and lane neg[1] := -lane neg[0],
+    the pairs the kernel's first step adds (a double, a cancel)."""
+    hole = torch.rand((C,), generator=g, device=suf[0].device) < 0.05
+    hole[[*eq, *neg]] = False
+    u = [torch.where(hole, 0, t[0, :, :C]) for t in suf]
+    for t in u:
+        t[:, eq[1]] = t[:, eq[0]]
+        t[:, neg[1]] = t[:, neg[0]]
+    u[1][:, neg[1]] = mont.neg(f, u[1][:, neg[0]])
+    return tuple(u)
+
+
+def k2_steps(f, name: str, u):
+    """The lane reduction as a loop of K2 launches and lane shifts, the
+    path the lane kernels replace (the JAX package's loop on the card)."""
+    C = u[0].shape[-1]
+    if name == "lane_suffix_scan":
+        wk = cuda_ec.shift_lanes(u, 1)
+        for i in range(max(C - 1, 0).bit_length()):
+            wk = cuda_ec.add_xyzz(f, wk, cuda_ec.shift_lanes(wk, 1 << i))
+        return wk
+    for i in range(C.bit_length() - 1):
+        u = cuda_ec.add_xyzz(f, u, cuda_ec.shift_lanes(u, C >> (i + 1)))
+    return tuple(t[:, 0] for t in u)
+
+
+def lane_adds(name: str, fin: torch.Tensor) -> tuple[int, int]:
+    """Adds of two finite points on lanes whose finiteness is ``fin`` (a sum
+    counts as finite if a term is: the one cancelling pair aside): those
+    the function needs (the finite terms less one, as a serial sum makes
+    them) and those the scan's or fold's schedule makes."""
+    C = fin.shape[0]
+    sched = 0
+    if name == "lane_suffix_scan":
+        need = max(int(fin[1:].sum()) - 1, 0)  # a serial sum from the top makes every suffix
+        fk = torch.cat([fin[1:], fin[:1] & False])
+        for i in range(max(C - 1, 0).bit_length()):
+            s = min(1 << i, C)
+            other = torch.cat([fk[s:], fk[:s] & False])
+            sched += int((fk & other).sum())
+            fk = fk | other
+        return need, sched
+    need = max(int(fin.sum()) - 1, 0)
+    fk = fin
+    while fk.shape[0] > 1:
+        half = fk.shape[0] // 2
+        sched += int((fk[:half] & fk[half:]).sum())
+        fk = fk[:half] | fk[half:]
+    return need, sched
+
+
+def lane_check(f, name: str, suf, C: int, g, clock_hz, mm, results) -> None:
+    """The lane scan or fold on C lanes against its plain twin, word for
+    word, and against the loop of K2 launches it replaces; timed beside
+    that loop."""
+    wrapper, _, _ = KERNELS[name]
+    twin = cuda_ec.lane_suffix_scan_plain if name == "lane_suffix_scan" else cuda_ec.lane_fold_plain
+    eq, neg = ((10, 11), (20, 21)) if name == "lane_suffix_scan" else ((7, 7 + C // 2),
+                                                                        (9, 9 + C // 2))
+    u = lane_inputs(f, suf, C, g, eq, neg)
+    got = wrapper(f, u)
+    want = twin(f, u)
+    if word_err(got, k2_steps(f, name, u)) != 0:
+        raise AssertionError(f"{name} at C = {C}: words differ from the K2 loop it replaces")
+    steps_ms = cuda_ms(lambda: k2_steps(f, name, u), 20)
+    out_pts = C if name == "lane_suffix_scan" else 1
+    adds, sched = lane_adds(name, ~mont.is_zero(f, u[2]))
+    work = (4 * 32 * (C + out_pts), mm * 14 * adds, clock_hz)
+    ms = cuda_ms(lambda: wrapper(f, u), 20)
+    log(f"[lanes] {name} C={C}: one launch {ms:.4f} ms, the loop of K2 launches and shifts it "
+        f"replaces {steps_ms:.4f} ms; {adds} adds of finite points needed, {sched} made in "
+        f"its order (bound at those: {bound_ms(work[0], mm * 14 * sched, clock_hz)[0]:.4f} ms)")
+    results.setdefault(f"{name}_before_ms", steps_ms)
+    results.setdefault(f"{name}_schedule_adds", sched)
+    check(name, got, want, ms, cuda_ms(lambda: twin(f, u), 2), f"4 x (8, {C})", f"4 x (8, {C})",
+          work, results)
 
 
 def slice_inputs(curve, n: int):
@@ -480,7 +685,9 @@ def slice_inputs(curve, n: int):
     return points, limbs.from_jax_limbs(sc, curve.device), ks, sc
 
 
-MSM_PATH = ("mont_mul", "add_xyzz", "dbl_xyzz", "suffix_sweep", "reduce_sweep")
+MSM_PATH = ("mont_mul", "add_xyzz", "dbl_xyzz", "suffix_sweep", "reduce_sweep",
+            "lane_suffix_scan", "lane_fold")
+K2_PER_WINDOW = 5  # u, W - D, the T-gather add, the unbias, Horner's add
 # madd_xyzz is on neither path: scalar_mul is one ladder launch
 KZG_PATH = ("scalar_mul_xyzz",) + MSM_PATH
 
@@ -533,8 +740,13 @@ def phase_slice(device):
     if got != expected:
         raise AssertionError(f"MSM result {got} != host-exact {expected}")
 
+    c = optimal_window_bits(SF.spec.bits, n)
+    nwin = -(-SF.spec.bits // c)
+    if launches["add_xyzz"] != K2_PER_WINDOW * nwin:
+        raise AssertionError(f"K2 launched {launches['add_xyzz']} times on {nwin} windows, "
+                             f"not {K2_PER_WINDOW} a window")
     times = []
-    for _ in range(3):
+    for _ in range(MSM_RUNS):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         aff = run()
@@ -543,9 +755,8 @@ def phase_slice(device):
         times.append(start.elapsed_time(end) / 1e3)
     if (int(F.decode(aff.x)), int(F.decode(aff.y))) != expected:
         raise AssertionError("MSM result changed between runs")
-    c = optimal_window_bits(SF.spec.bits, n)
     log(f"[slice] bn254_g1 msm+to_affine n=2^{LOG_N} c={c} verified=True "
-        f"first_s={first_s:.4f} runs_s={[round(t, 4) for t in times]} best_s={min(times):.4f} "
+        f"first_s={first_s:.4f} runs_s={times} best_s={min(times):.4f} "
         f"peak_mem_bytes={peak} host_expected_s={host_s:.3f} launches={json.dumps(launches)}")
     return launches
 
@@ -731,6 +942,11 @@ def main() -> int:
             entry["also_replaces"] = ALSO_REPLACES[name]
         if name == "suffix_sweep":
             entry.update(results["suffix_sweep_phases"])
+        if name == "reduce_sweep":
+            entry.update(results["reduce_sweep_segments"])
+        if f"{name}_before_ms" in results:
+            entry["k2_loop_ms"] = results[f"{name}_before_ms"]
+            entry["schedule_adds"] = results[f"{name}_schedule_adds"]
         kernels.append(entry)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -13,8 +13,16 @@
 
 #include "xyzz.cuh"
 
+// K2 asks ptxas for ADD_MIN_BLOCKS blocks of 128 per SM, a register cap:
+// 128 registers (84 bytes of spills), where it takes 172 with no bounds and
+// 196 at one block.  At the MSM's T-gather width, 4 x (8, 131071), it ran
+// 13-20% faster in turns on the H100 than with no bounds or at one block,
+// and faster than at 3 or 5 blocks (PERF.md).
+constexpr int ADD_MIN_BLOCKS = 4;
+
 template <int W>
-__global__ void add_xyzz_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
+__global__ void __launch_bounds__(128, ADD_MIN_BLOCKS)
+    add_xyzz_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
                                 const uint32_t* __restrict__ pzz, const uint32_t* __restrict__ pzzz,
                                 const uint32_t* __restrict__ qx, const uint32_t* __restrict__ qy,
                                 const uint32_t* __restrict__ qzz, const uint32_t* __restrict__ qzzz,

@@ -39,6 +39,22 @@
 // for SWEEP_MIN_BLOCKS = 5 blocks per SM, which caps them at 96 registers
 // with 72-88 bytes of spills; they ran 11% faster at (1024, 8, 4096) than
 // with the 148-154 registers ptxas takes uncapped (PERF.md).
+//
+// K6 (the reduce sweep, tachyon_tpu/ops/pallas_msm.py _reduce_sweep_call,
+// body _add_blinded; JAX twin reduce_sweep_jnp) sums a lane's R XYZZ rows
+// from D.  Its work is small (R x C blinded adds: 256 x 512 in the 2^22
+// MSM's windows), so on this card it is bound by the latency of one
+// thread's chain of adds, not by multiplies or bytes: one thread per lane
+// gave C = 512 threads on 132 SMs, each a chain of R adds (~9 us each).
+// It is a plain sum, so no row needs a carry in: phase 1 cuts a lane's
+// rows into S segments of L = ceil(R / S) (the top one ragged) and thread
+// (s, c) sums its segment from D into T[s] = D + partial; phase 2 adds the
+// S partials of a lane, T[a] + T[b] + (-D) with the complete add, in a
+// tree of ceil(log2 S) levels through shared memory (or, as a rival that
+// chip_smoke.py times, a serial chain).  The wrapper (ops/cuda_msm.py
+// reduce_segments) picks S; at S = 1 phase 1 alone writes the output, with
+// the sequential sweep's words.  For S > 1 the total is the same point in
+// other XYZZ words.
 #include <cuda_runtime.h>
 
 #include "xyzz.cuh"
@@ -46,6 +62,8 @@
 constexpr int SWEEP_THREADS = 128;   // phases 1 and 3
 constexpr int SWEEP_MIN_BLOCKS = 5;  // per SM, asked of ptxas for phases 1 and 3
 constexpr int CARRY_THREADS = 32;   // phase 2: one warp per block spreads C lanes over SMs
+constexpr int REDUCE_THREADS = 128;  // K6 phase 1
+constexpr int COMBINE_THREADS = 64;  // K6 phase 2: lanes x F threads per block
 
 // Point k (0..3) of scratch slot j in an (S - 1, 4, W, C) array.
 template <int W>
@@ -172,28 +190,95 @@ __global__ void __launch_bounds__(SWEEP_THREADS, SWEEP_MIN_BLOCKS)
   sweep_rows<W, true>(acc, x, y, inf, sx, sy, szz, szzz, lo, hi, C, c, f);
 }
 
-// out[:, c] = D[c] + sum_r Q[r, c] over XYZZ rows (infinity rows skipped).
-// One thread per lane, the row loop inside it (the TPU's sequential grid).
+// K6, phase 1: thread (s, c), c fastest, T[s] = D + sum of rows
+// [s L, min((s + 1) L, R)) of lane c with the blinded add (infinity rows
+// skipped), into slot s of tot.  With S = 1, tot is the output.  The next
+// row is loaded before the current row's add.
 template <int W>
-__global__ void reduce_sweep_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
-                                    const uint32_t* __restrict__ zz,
-                                    const uint32_t* __restrict__ zzz,
-                                    const uint32_t* __restrict__ dx, const uint32_t* __restrict__ dy,
-                                    const uint32_t* __restrict__ dzz,
-                                    const uint32_t* __restrict__ dzzz, uint32_t* ox, uint32_t* oy,
-                                    uint32_t* ozz, uint32_t* ozzz, int64_t R, int64_t C,
-                                    FieldConst<W> f) {
-  int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  Xyzz<W> acc;
+__global__ void __launch_bounds__(REDUCE_THREADS)
+    reduce_partials_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
+                           const uint32_t* __restrict__ zz, const uint32_t* __restrict__ zzz,
+                           const uint32_t* __restrict__ dx, const uint32_t* __restrict__ dy,
+                           const uint32_t* __restrict__ dzz, const uint32_t* __restrict__ dzzz,
+                           uint32_t* tot, int64_t R, int64_t C, int64_t L, int64_t S,
+                           FieldConst<W> f) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= S * C) return;
+  const int64_t s = t / C, c = t % C;
+  const int64_t lo = s * L, hi = lo + L < R ? lo + L : R;
+  Xyzz<W> acc, q;
   xyzz_load<W>(acc, dx, dy, dzz, dzzz, C, c);
-  for (int64_t r = 0; r < R; ++r) {
-    const int64_t row = r * W * C;
-    Xyzz<W> q;
-    xyzz_load<W>(q, x + row, y + row, zz + row, zzz + row, C, c);
+  xyzz_load<W>(q, x + lo * W * C, y + lo * W * C, zz + lo * W * C, zzz + lo * W * C, C, c);
+  for (int64_t r = lo; r < hi; ++r) {
+    const int64_t row = (r + 1 < hi ? r + 1 : r) * W * C;
+    Xyzz<W> nq;
+    xyzz_load<W>(nq, x + row, y + row, zz + row, zzz + row, C, c);
     xyzz_add_blinded<W>(acc, q, f);
+    q = nq;
   }
-  xyzz_store<W>(ox, oy, ozz, ozzz, C, c, acc);
+  slot_store<W>(tot, s, C, c, acc);
+}
+
+// K6, phase 2: F threads per lane.  Thread g chains partials
+// [g G, min((g + 1) G, S)) serially, u = (u + T[j]) + (-D); then a tree over
+// the nG = ceil(S / G) chain results through shared memory,
+// u[g] = (u[g] + u[g + h]) + (-D) for g % 2h == 0 and g + h < nG, h = 1, 2, ...
+// Every operand is D + a partial sum, so D + sum stays the form of every
+// result; the complete add takes the operands that are equal (equal
+// partial sums, or two segments all at infinity, T = D).  F = 1 is a
+// serial chain of 2 (S - 1) adds; G = 2 a tree of 2 ceil(log2 S) adds.
+// A block holds lpb lanes x F threads, lane fastest; the shared memory is
+// one point per thread, word-major.
+template <int W>
+__global__ void __launch_bounds__(COMBINE_THREADS)
+    reduce_combine_kernel(const uint32_t* __restrict__ tot, const uint32_t* __restrict__ dx,
+                          const uint32_t* __restrict__ dy, const uint32_t* __restrict__ dzz,
+                          const uint32_t* __restrict__ dzzz, uint32_t* out, int64_t C, int64_t S,
+                          int64_t G, int F, FieldConst<W> f) {
+  extern __shared__ uint32_t sh[];  // (4, W, blockDim.x)
+  const int n = blockDim.x, lpb = n / F;
+  const int g = threadIdx.x / lpb;
+  const int64_t c = (int64_t)blockIdx.x * lpb + threadIdx.x % lpb;
+  const int64_t nG = (S + G - 1) / G, j0 = g * G;
+  const bool live = c < C && g < nG;
+  int levels = 0;
+  while (((int64_t)1 << levels) < nG) ++levels;
+  Xyzz<W> acc, nd;
+  if (live) {
+    xyzz_load<W>(nd, dx, dy, dzz, dzzz, C, c);
+    uint32_t zero[W];
+    fp_zero<W>(zero);
+    fp_sub<W>(nd.y, zero, nd.y, f);  // -D
+    slot_load<W>(acc, tot, j0, C, c);
+  }
+  // Steps 1 .. G - 1 walk the chain, then one step per tree level; a
+  // thread adds only where it has an operand.  One add site keeps the
+  // kernel's code and registers to those of one complete add pair.
+  for (int64_t k = 1; k < G + levels; ++k) {
+    Xyzz<W> t;
+    bool take;
+    if (k < G) {
+      take = live && j0 + k < S;
+      if (take) slot_load<W>(t, tot, j0 + k, C, c);
+    } else {
+      const int64_t h = (int64_t)1 << (k - G);
+      if (live && g % (2 * h) == h) {
+        xyzz_store<W>(sh, sh + W * n, sh + 2 * W * n, sh + 3 * W * n, n, threadIdx.x, acc);
+      }
+      __syncthreads();
+      take = live && g % (2 * h) == 0 && g + h < nG;
+      if (take) {
+        xyzz_load<W>(t, sh, sh + W * n, sh + 2 * W * n, sh + 3 * W * n, n,
+                     threadIdx.x + h * lpb);
+      }
+      __syncthreads();
+    }
+    if (take) {
+      acc = xyzz_add<W>(acc, t, f);
+      acc = xyzz_add<W>(acc, nd, f);
+    }
+  }
+  if (live && g == 0) xyzz_store<W>(out, out + W * C, out + 2 * W * C, out + 3 * W * C, C, c, acc);
 }
 
 #define U32C(p) ((const uint32_t*)(p))
@@ -260,18 +345,45 @@ extern "C" cudaError_t tt_suffix_emit(const void* x, const void* y, const void* 
   return cudaGetLastError();
 }
 
-extern "C" cudaError_t tt_reduce_sweep(const void* x, const void* y, const void* zz,
-                                       const void* zzz, const void* dx, const void* dy,
-                                       const void* dzz, const void* dzzz, void* ox, void* oy,
-                                       void* ozz, void* ozzz, int64_t R, int64_t C,
-                                       const uint32_t* consts, int W, void* stream) {
-  const int threads = 64;
+// Threads per block of K6's phase 1, for the wrapper's segment count.
+extern "C" int tt_reduce_sweep_threads() { return REDUCE_THREADS; }
+
+// K6 phase 1 into tot, an (S, 4, W, C) array (the output when S = 1).
+extern "C" cudaError_t tt_reduce_partials(const void* x, const void* y, const void* zz,
+                                          const void* zzz, const void* dx, const void* dy,
+                                          const void* dzz, const void* dzzz, void* tot, int64_t R,
+                                          int64_t C, int64_t L, int64_t S, const uint32_t* consts,
+                                          int W, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (W) {
     case 8:
-      reduce_sweep_kernel<8><<<blocks_for(C, threads), threads, 0, s>>>(
+      reduce_partials_kernel<8><<<blocks_for(S * C, REDUCE_THREADS), REDUCE_THREADS, 0, s>>>(
           U32C(x), U32C(y), U32C(zz), U32C(zzz), U32C(dx), U32C(dy), U32C(dzz), U32C(dzzz),
-          U32(ox), U32(oy), U32(ozz), U32(ozzz), R, C, load_consts<8>(consts));
+          U32(tot), R, C, L, S, load_consts<8>(consts));
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// Threads per block of K6's phase 2, the most threads per lane it takes.
+extern "C" int tt_reduce_combine_threads() { return COMBINE_THREADS; }
+
+// K6 phase 2 into out, a (4, W, C) array: F threads per lane (a power of
+// two, at most COMBINE_THREADS), each on a chain of G = ceil(S / F) partials.
+extern "C" cudaError_t tt_reduce_combine(const void* tot, const void* dx, const void* dy,
+                                         const void* dzz, const void* dzzz, void* out, int64_t C,
+                                         int64_t S, int F, const uint32_t* consts, int W,
+                                         void* stream) {
+  if (F < 1 || F > COMBINE_THREADS || (F & (F - 1)) != 0) return cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int lpb = COMBINE_THREADS / F, n = lpb * F;
+  switch (W) {
+    case 8:
+      reduce_combine_kernel<8><<<blocks_for(C, lpb), n, 4 * 8 * n * sizeof(uint32_t), s>>>(
+          U32C(tot), U32C(dx), U32C(dy), U32C(dzz), U32C(dzzz), U32(out), C, S, (S + F - 1) / F,
+          F, load_consts<8>(consts));
       break;
     default:
       return cudaErrorInvalidValue;

@@ -8,16 +8,18 @@ design.  For one c-bit window with the points sorted by digit,
 with T[j] = sum_{i >= j} P_i over the sorted array and
 pos_b = searchsorted(d_sorted, b).  Per window: one stable sort, a gather
 into C lanes x R rows, the K5 sweep (per-lane suffix sums from a blind D),
-a Hillis-Steele scan of the lane totals (K2), the T-gather at the bucket
-starts (K2), the K6 sweep and a fold (K2); Horner across windows (K3, K2).
+a Hillis-Steele scan of the lane totals (one launch of the lane scan, K2's
+add), the T-gather at the bucket starts (K2), the K6 sweep and a fold (one
+launch of the lane fold); Horner across windows (K3, K2).
 As in the JAX package, n <= 128 takes the naive path instead: a batched
 double-and-add (``scalar_mul``: one launch of the fused ladder) and a tree
 reduce (K2).
 
 The XLA steps that are not Pallas kernels map to PyTorch calls:
 ``lax.sort_key_val`` -> ``torch.sort(stable=True)``, ``jnp.take`` ->
-indexing, ``jnp.searchsorted`` -> ``torch.searchsorted``, ``scan`` and
-``fori_loop`` -> Python loops.
+indexing, ``jnp.searchsorted`` -> ``torch.searchsorted``; the window
+loop and Horner's ``fori_loop`` -> Python loops, and the lane scan's and
+fold's ``fori_loop`` over K2 -> one kernel each.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ import torch
 
 from tachyon_tpu_torch.math import host_ec
 from tachyon_tpu_torch.math.ec import AffinePoint, PointXYZZ, SWCurve
-from tachyon_tpu_torch.ops import cuda_msm, mont
+from tachyon_tpu_torch.ops import cuda_ec, cuda_msm, mont
 
 
 def optimal_window_bits(bits: int, n: int) -> int:
@@ -82,32 +84,19 @@ def _bcast(p: PointXYZZ, shape) -> PointXYZZ:
 def _shift_left(p: PointXYZZ, s: int) -> PointXYZZ:
     """Lane shift along the last axis: out[..., c] = p[..., c + s], with
     infinity (all-zero coordinates) shifted in at the end."""
-    def sh(t):
-        s_ = min(s, t.shape[-1])
-        pad = torch.zeros(t.shape[:-1] + (s_,), dtype=t.dtype, device=t.device)
-        return torch.cat([t[..., s_:], pad], dim=-1)
-
-    return PointXYZZ(*(sh(t) for t in p))
+    return PointXYZZ(*cuda_ec.shift_lanes(tuple(p), s))
 
 
 def _suffix_scan_lanes(curve: SWCurve, u: PointXYZZ) -> PointXYZZ:
     """EXCLUSIVE suffix sums over the last axis: out[c] = sum_{c' > c} u[c']
-    (Hillis-Steele, log C steps)."""
-    C = u.x.shape[-1]
-    wk = _shift_left(u, 1)
-    for i in range(max(C - 1, 0).bit_length()):
-        wk = curve.add_xyzz(wk, _shift_left(wk, 1 << i))
-    return wk
+    (Hillis-Steele, log C steps; one kernel launch on the card)."""
+    return PointXYZZ(*cuda_ec.lane_suffix_scan(curve.F.spec, tuple(u)))
 
 
 def _fold_reduce_lanes(curve: SWCurve, pts: PointXYZZ) -> PointXYZZ:
     """Sum over the last axis (power-of-two length) by folding in half at
-    fixed width; the result is lane 0."""
-    C = pts.x.shape[-1]
-    assert C & (C - 1) == 0
-    for i in range(C.bit_length() - 1):
-        pts = curve.add_xyzz(pts, _shift_left(pts, C >> (i + 1)))
-    return PointXYZZ(*(t[..., 0].contiguous() for t in pts))
+    fixed width; the result is lane 0 (one kernel launch on the card)."""
+    return PointXYZZ(*cuda_ec.lane_fold(curve.F.spec, tuple(pts)))
 
 
 def _sweep_suffix(curve: SWCurve, gx, gy, ginf, d: PointXYZZ) -> PointXYZZ:

@@ -40,8 +40,16 @@ LAUNCHERS = {
     "tt_suffix_totals": [_P] * 8 + [_I64] * 4 + [_P, ctypes.c_int, _P],
     "tt_suffix_carries": [_P] * 6 + [_I64] * 2 + [_P, ctypes.c_int, _P],
     "tt_suffix_emit": [_P] * 12 + [_I64] * 4 + [_P, ctypes.c_int, _P],
-    "tt_reduce_sweep": [_P] * 12 + [_I64, _I64, _P, ctypes.c_int, _P],
+    "tt_reduce_partials": [_P] * 9 + [_I64] * 4 + [_P, ctypes.c_int, _P],
+    "tt_reduce_combine": [_P] * 6 + [_I64] * 2 + [ctypes.c_int, _P, ctypes.c_int, _P],
+    "tt_lane_suffix_scan": [_P] * 9 + [_I64, _P, ctypes.c_int, _P],
+    "tt_lane_fold": [_P] * 8 + [_I64, _P, ctypes.c_int, _P],
 }
+
+# block sizes the wrappers read from the library (each returns an int)
+THREAD_COUNTS = ("tt_suffix_sweep_threads", "tt_reduce_sweep_threads",
+                 "tt_reduce_combine_threads")
+
 
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
@@ -104,6 +112,10 @@ def library() -> ctypes.CDLL:
     for name, argtypes in LAUNCHERS.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    for name in THREAD_COUNTS:
+        fn = getattr(lib, name)
+        fn.argtypes = []
         fn.restype = ctypes.c_int
     return lib
 

@@ -15,6 +15,13 @@ Replace the Pallas kernels of ``tachyon_tpu/ops/pallas_ec.py``:
   double-and-add ladder of ``SWCurve.scalar_mul`` (the JAX package's
   ``lax.scan`` over K3, K4 and a select per bit) in one launch
   (``csrc/ladder.cu``), with the same words.
+* ``lane_suffix_scan`` and ``lane_fold``: K2 redesigned for the MSM
+  window's lane reductions, the JAX package's ``fori_loop``s over K2 in
+  ``_suffix_scan_lanes`` and ``_fold_reduce_lanes``
+  (``tachyon_tpu/math/msm.py:196-222``), each in one launch
+  (``csrc/lanes.cu``: a cooperative launch with a grid-wide barrier
+  between the scan's steps; one block through shared memory for the
+  fold), with the loops' order of adds and so their words.
 
 Kernels (``csrc/ec.cu``, ``csrc/ladder.cu``, ``csrc/xyzz.cuh``): one thread
 per point; each coordinate is a word-major ``(W, n)`` array so the loads of
@@ -30,10 +37,11 @@ bit-identical.  The standalone K3 and K4 stay: the MSM's Horner doublings
 launch K3, and ``SWCurve.madd_xyzz`` launches K4.
 
 ``add_xyzz_plain`` / ``dbl_xyzz_plain`` / ``madd_xyzz_plain`` /
-``scalar_mul_plain`` are the plain PyTorch twins (the CPU path, and the
-reference the kernels are held against on the card); they mirror
-``SWCurve._add_xyzz_jnp`` / ``_dbl_xyzz_jnp`` / ``_madd_xyzz_jnp`` /
-``scalar_mul``.
+``scalar_mul_plain`` / ``lane_suffix_scan_plain`` / ``lane_fold_plain``
+are the plain PyTorch twins (the CPU path, and the reference the kernels
+are held against on the card); they mirror ``SWCurve._add_xyzz_jnp`` /
+``_dbl_xyzz_jnp`` / ``_madd_xyzz_jnp`` / ``scalar_mul`` and the JAX
+package's ``_suffix_scan_lanes`` / ``_fold_reduce_lanes``.
 """
 from __future__ import annotations
 
@@ -235,7 +243,85 @@ def scalar_mul(f: FieldSpec, px, py, pinf, scalars):
     return tuple(o.view(-1, *batch) for o in outs)
 
 
+def shift_lanes(p, s: int):
+    """Lane shift of a 4-tuple of (..., C) coords along the last axis:
+    out[..., c] = p[..., c + s], with infinity (all-zero coordinates)
+    shifted in at the end."""
+    def sh(t):
+        s_ = min(s, t.shape[-1])
+        pad = torch.zeros(t.shape[:-1] + (s_,), dtype=t.dtype, device=t.device)
+        return torch.cat([t[..., s_:], pad], dim=-1)
+
+    return tuple(sh(t) for t in p)
+
+
+def lane_suffix_scan_plain(f: FieldSpec, u):
+    """Plain twin of ``lane_suffix_scan``: the JAX package's Hillis-Steele
+    loop, one complete add over the whole lane axis per step."""
+    C = u[0].shape[-1]
+    wk = shift_lanes(u, 1)
+    for i in range(max(C - 1, 0).bit_length()):
+        wk = add_xyzz_plain(f, wk, shift_lanes(wk, 1 << i))
+    return wk
+
+
+def lane_fold_plain(f: FieldSpec, pts):
+    """Plain twin of ``lane_fold``: the JAX package's fold in half at fixed
+    width; the result is lane 0."""
+    C = pts[0].shape[-1]
+    assert C & (C - 1) == 0
+    for i in range(C.bit_length() - 1):
+        pts = add_xyzz_plain(f, pts, shift_lanes(pts, C >> (i + 1)))
+    return tuple(t[..., 0].contiguous() for t in pts)
+
+
+def _lanes_in(f: FieldSpec, p):
+    """Check a 4-tuple of (W, C) CUDA coords for the lane kernels; returns
+    W, C."""
+    for t in p:
+        if t.ndim != 2 or t.shape != p[0].shape:
+            raise ValueError(f"lane coords must be four (W, C) tensors, got {t.shape}")
+    return check_cuda(f, *p), p[0].shape[1]
+
+
+def lane_suffix_scan(f: FieldSpec, u):
+    """Exclusive suffix sums over the lanes, out[c] = sum_{c' > c} u[c'],
+    of a 4-tuple of (W, C) XYZZ coords.  CPU tensors take
+    ``lane_suffix_scan_plain``; CUDA tensors launch the scan kernel (one
+    cooperative launch) or raise."""
+    if u[0].device.type == "cpu":
+        return lane_suffix_scan_plain(f, u)
+    W, C = _lanes_in(f, u)
+    outs = tuple(torch.empty_like(t) for t in u)
+    if C:
+        buf = torch.empty((2, 4, W, C), dtype=u[0].dtype, device=u[0].device)
+        _build.launch("tt_lane_suffix_scan", *(t.data_ptr() for t in u), buf.data_ptr(),
+                      *(o.data_ptr() for o in outs), C, consts_ptr(f), W)
+        lane_suffix_scan.launches += 1
+    return outs
+
+
+def lane_fold(f: FieldSpec, pts):
+    """The sum of a 4-tuple of (W, C) XYZZ coords over the lanes (C a power
+    of two), as 4 (W,) coords.  CPU tensors take ``lane_fold_plain``; CUDA
+    tensors launch the fold kernel (one block; C <= 512) or raise."""
+    if pts[0].device.type == "cpu":
+        return lane_fold_plain(f, pts)
+    W, C = _lanes_in(f, pts)
+    if C & (C - 1) or not 1 <= C <= 512:
+        raise ValueError(f"lane_fold takes a power of two up to 512 lanes, got {C}")
+    if C == 1:
+        return tuple(t[:, 0].clone() for t in pts)
+    outs = tuple(torch.empty((W,), dtype=t.dtype, device=t.device) for t in pts)
+    _build.launch("tt_lane_fold", *(t.data_ptr() for t in pts), *(o.data_ptr() for o in outs),
+                  C, consts_ptr(f), W)
+    lane_fold.launches += 1
+    return outs
+
+
 add_xyzz.launches = 0
 dbl_xyzz.launches = 0
 madd_xyzz.launches = 0
 scalar_mul.launches = 0
+lane_suffix_scan.launches = 0
+lane_fold.launches = 0

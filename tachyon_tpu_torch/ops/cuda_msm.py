@@ -12,15 +12,18 @@ Replace the Pallas kernels of ``tachyon_tpu/ops/pallas_msm.py``:
   the q = infinity branch of add-2008-s.
 
 The TPU walks the rows in a sequential grid and keeps the lane accumulators
-in VMEM scratch.  Blocks on Hopper run in no order.  K6 turns the row walk
-into a loop inside one thread per lane (``csrc/msm_sweeps.cu``).  K5 did
-the same until it was redesigned: at 2^22 points that is 4096 threads on
-132 SMs, each a chain of 1024 mixed adds, so it ran 29x above its bound
-(integer multiplies).  K5 now cuts each lane's R rows into S segments and
-runs a two-level suffix scan in three launches (segment totals from D;
-carries Cin[s] = (Cin[s+1] + T[s+1]) + (-D) with the complete add, one
-thread per lane; every row emitted from Cin[s]), with S x C threads in the
-two sweeping launches.  ``segments`` picks S.
+in VMEM scratch.  Blocks on Hopper run in no order.  A loop over the rows
+inside one thread per lane (``csrc/msm_sweeps.cu``) gives, at 2^22 points,
+4096 threads on 132 SMs for K5, each a chain of 1024 mixed adds, and 512
+threads for K6, each a chain of 256 adds: latency, far above their bounds.
+So both cut each lane's R rows into S segments.  K5 runs a two-level
+suffix scan in three launches (segment totals from D; carries
+Cin[s] = (Cin[s+1] + T[s+1]) + (-D) with the complete add, one thread per
+lane; every row emitted from Cin[s]), with S x C threads in the two
+sweeping launches; ``segments`` picks S.  K6 is a plain sum, so it needs
+no carries: S x C threads sum their segments from D into T[s], then a
+tree of complete adds (T[a] + T[b]) + (-D) over a lane's partials, in two
+launches; ``reduce_segments`` picks S.
 
 **K5's words differ from the TPU kernel's; its points do not.**  The
 segments change the order of additions, so every row outside the top
@@ -31,6 +34,14 @@ adds these rows, so its result does not move.
 ``suffix_sweep_segmented_plain`` is the twin of the three phases, word for
 word; ``suffix_sweep_plain`` is the sequential twin of the TPU kernel,
 equal to it as points.
+
+**K6's words differ from the TPU kernel's for S > 1, too.**  Its total
+D + sum_r Q[r, c] is the same point in other XYZZ words; at S = 1 (phase 1
+alone) the words are the TPU kernel's.  The MSM's next steps, red + (-D2)
+and the fold, only add these points, so its affine result does not move.
+``reduce_sweep_segmented_plain`` is the twin of the two phases, word for
+word; ``reduce_sweep_plain`` stays the sequential twin (the CPU path),
+equal to ``reduce_sweep_jnp`` word for word.
 
 The plain twins follow ``suffix_sweep_jnp`` / ``reduce_sweep_jnp``: row by
 row with the complete formulas.  From a blind D they agree bit for bit with
@@ -177,6 +188,12 @@ def suffix_sweep_plan(f: FieldSpec, x, y, inf, d, S: int | None = None) -> Sweep
     return SweepPlan(outs, (tot, cin), S, launches)
 
 
+def run_plan(plan: SweepPlan) -> None:
+    """Launch a plan's kernels in order."""
+    for name, args in plan.launches:
+        _build.launch(name, *args)
+
+
 def suffix_sweep(f: FieldSpec, x, y, inf, d):
     """x, y: (R, W, C) sorted affine coords; inf: (R, 1, C) int32 flags;
     d: 4-tuple of (W, C) blind coords.  Returns 4 arrays (R, W, C) with
@@ -185,27 +202,119 @@ def suffix_sweep(f: FieldSpec, x, y, inf, d):
     if x.device.type == "cpu":
         return suffix_sweep_plain(f, x, y, inf, d)
     plan = suffix_sweep_plan(f, x, y, inf, d)
-    for name, args in plan.launches:
-        _build.launch(name, *args)
+    run_plan(plan)
     if plan.launches:
         suffix_sweep.launches += 1
     return plan.outs
 
 
+REDUCE_BLOCKS_PER_SM = 2   # where K6's S stops growing
+REDUCE_ROWS_PER_SEGMENT = 8
+
+
+def reduce_segments(R: int, C: int, sms: int, threads: int) -> int:
+    """K6's segment count S for R rows x C lanes on a card of ``sms`` SMs,
+    with ``threads`` per block in phase 1 (the kernel library's
+    ``tt_reduce_sweep_threads``).
+
+    A thread of phase 1 adds R / S rows, ~8 us each on the H100, and
+    phase 2 adds a lane's S partials in ceil(log2 S) tree levels of two
+    complete adds, ~45 us a level (PERF.md).  R / S + 5.6 log2 S rows is
+    least near S = R / 8, which was the fastest S timed at R = 16, 64 and
+    256: 8 rows a segment, and one segment below R = 16.  S also stops
+    where phase 1 holds two blocks per SM.  Then cut to ceil(R / L) for
+    L = ceil(R / S) rows per segment, so that no segment is empty."""
+    fill = REDUCE_BLOCKS_PER_SM * sms * threads // max(C, 1)
+    S = max(1, min(R // REDUCE_ROWS_PER_SEGMENT, fill))
+    L = -(-R // S)
+    return -(-R // L)
+
+
+def combine_fan(S: int, limit: int) -> int:
+    """Threads per lane in K6's phase 2 for S partials: a tree, pairs first
+    (ceil(S / 2) rounded up to a power of two), at most ``limit`` (the
+    kernel library's ``tt_reduce_combine_threads``)."""
+    return min(1 << max(S - 1, 1).bit_length() - 1, limit)
+
+
+def reduce_sweep_segmented_plain(f: FieldSpec, xyzz, d, S: int, F: int):
+    """Plain twin of K6's two phases with S segments of ceil(R / S) rows
+    (the top one ragged), word for word: T[s] = D + the segment's rows with
+    the complete add, then F threads per lane (as launched: ``combine_fan``,
+    or 1 for the chain): chains of G = ceil(S / F) partials,
+    u = (u + T[j]) + (-D), and a tree u[g] = (u[g] + u[g + h]) + (-D) over
+    the chains' results.  Equal to ``reduce_sweep_plain`` as points, and
+    word for word at S = 1."""
+    R = xyzz[0].shape[0]
+    L = -(-R // max(1, min(R, S)))
+    S = -(-R // L)
+    d = tuple(d)
+    nd = (d[0], mont.neg(f, d[1]), d[2], d[3])
+    T = [reduce_sweep_plain(f, tuple(t[s * L:(s + 1) * L] for t in xyzz), d) for s in range(S)]
+
+    def step(a, b):
+        return add_xyzz_plain(f, add_xyzz_plain(f, a, b), nd)
+
+    G = -(-S // F)
+    u = []
+    for j0 in range(0, S, G):
+        acc = T[j0]
+        for j in range(j0 + 1, min(j0 + G, S)):
+            acc = step(acc, T[j])
+        u.append(acc)
+    h = 1
+    while h < len(u):
+        for g in range(0, len(u) - h, 2 * h):
+            u[g] = step(u[g], u[g + h])
+        h *= 2
+    return u[0]
+
+
+def reduce_sweep_plan(f: FieldSpec, xyzz, d, S: int | None = None,
+                      F: int | None = None) -> SweepPlan:
+    """Allocate K6's output and scratch for CUDA inputs and list its
+    launches (phase 1, then phase 2 when S > 1); ``reduce_sweep`` runs
+    them.  With no rows the output is a copy of D and there is no launch.
+    S defaults to ``reduce_segments`` and F to ``combine_fan``; a given S is
+    cut to 1 .. R with no segment empty (``chip_smoke.py`` times the kernel
+    at other S and F)."""
+    R, W, C = _check_sweep(f, xyzz, d)
+    out = torch.empty((4, W, C), dtype=xyzz[0].dtype, device=xyzz[0].device)
+    outs = tuple(out.unbind(0))
+    if not (R and C):
+        for o, t in zip(outs, d):
+            o.copy_(t)
+        return SweepPlan(outs, (), 0, [])
+    lib = _build.library()
+    if S is None:
+        S = reduce_segments(R, C,
+                            torch.cuda.get_device_properties(out.device).multi_processor_count,
+                            lib.tt_reduce_sweep_threads())
+    L = -(-R // max(1, min(R, S)))
+    S = -(-R // L)
+    dp = [t.data_ptr() for t in d]
+    consts = consts_ptr(f)
+    tot = out if S == 1 else torch.empty((S, 4, W, C), dtype=out.dtype, device=out.device)
+    launches = [("tt_reduce_partials", (*(t.data_ptr() for t in xyzz), *dp, tot.data_ptr(),
+                                        R, C, L, S, consts, W))]
+    if S > 1:
+        F = F or combine_fan(S, lib.tt_reduce_combine_threads())
+        launches.append(("tt_reduce_combine", (tot.data_ptr(), *dp, out.data_ptr(), C, S, F,
+                                               consts, W)))
+    return SweepPlan(outs, (tot,), S, launches)
+
+
 def reduce_sweep(f: FieldSpec, xyzz, d):
     """xyzz: 4-tuple of (R, W, C); d: 4-tuple of (W, C) blind coords.
     Returns 4 arrays (W, C): D + column sums.  CPU tensors take
-    ``reduce_sweep_plain``; CUDA tensors launch K6 or raise."""
+    ``reduce_sweep_plain``; CUDA tensors launch K6's two phases or raise."""
     if xyzz[0].device.type == "cpu":
         return reduce_sweep_plain(f, xyzz, d)
-    R, W, C = _check_sweep(f, xyzz, d)
-    outs = [torch.empty_like(t) for t in d]
-    if C:
-        _build.launch("tt_reduce_sweep", *(t.data_ptr() for t in xyzz),
-                      *(t.data_ptr() for t in d), *(o.data_ptr() for o in outs),
-                      R, C, consts_ptr(f), W)
+    plan = reduce_sweep_plan(f, xyzz, d)
+    run_plan(plan)
+    if plan.launches:
         reduce_sweep.launches += 1
-    return tuple(outs)
+    return plan.outs
 
 
 suffix_sweep.launches = 0
