@@ -8,11 +8,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device: requires CUDA and prints the card's name and power limit;
 2. build: compiles the CUDA kernels from tachyon_tpu_torch/csrc (one nvcc
    per source, all started together);
-3. kernels: each of K1-K6, the fused scalar_mul ladder and the lane scan
-   and fold against its plain PyTorch twin on the card, bit-exact on the
-   words, both timed with CUDA events, beside its bound: the larger of its
-   bytes over 3.35 TB/s and its 32x32-bit word products over 64 per clock
-   per SM x 132 SMs x the card's max SM clock.  K5, redesigned into three
+3. kernels: each of K1-K6, the fused scalar_mul ladder, the lane scan
+   and fold and the Horner kernel against its plain PyTorch twin on the
+   card, bit-exact on the words, both timed with CUDA events, beside its
+   bound: the larger of its bytes over 3.35 TB/s and its 32x32-bit word
+   products (136 a field multiply, whatever the multiply compiles to) over
+   64 per clock per SM x 132 SMs x the card's max SM clock, and the field
+   multiplies per second it ran at.  K1 also on edge operands and on a
+   full-width field (secp256k1's Fq), word for word, with its host cost
+   per call at n = 1 beside the bare ctypes launcher's.  K5, redesigned into three
    launches over S row segments, is also held as points, over all 1024
    rows of a 256-lane slice, against the sequential twin of the TPU kernel,
    with its segment count and the time of each launch, and timed at the
@@ -21,11 +25,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    sequential twin at both main paths' shapes, with each launch's time and
    the chain combine's, and timed by segment count at three layouts.  The
    lane scan (C = 4096, 512) and fold (512) are also held against, and
-   timed beside, the loop of K2 launches they replace;
+   timed beside, the loop of K2 launches they replace, and the Horner
+   kernel (15 windows, c = 17, with an infinite window and adds that double
+   and cancel) against the loop of K3 and K2 launches it replaces;
 4. MSM: the BN254 G1 MSM at n = 2^22 (msm + to_affine) on the point set of
    bench.py (256 exact multiples of G, seed 42, tiled; 254-bit scalars),
    checked against the host-exact point, timed MSM_RUNS times, with the
-   kernels' launch counts (K2: K2_PER_WINDOW a window);
+   kernels' launch counts (K2: K2_PER_WINDOW a window; one Horner launch,
+   no K3);
 5. KZG: the BN254 KZG path at n = 2^20 (unsafe setup, commit,
    commit_lagrange, open, verify; a 64-coefficient commit on the naive MSM
    path; Pedersen setup(64) + commit), each step checked against host ints,
@@ -41,16 +48,18 @@ torch-only.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from tachyon_tpu_torch.crypto import kzg, pedersen
-from tachyon_tpu_torch.fields import limbs
+from tachyon_tpu_torch.fields import limbs, presets
 from tachyon_tpu_torch.math import curves, host_ec
 from tachyon_tpu_torch.math.ec import AffinePoint, PointXYZZ
 from tachyon_tpu_torch.math.msm import _blind_points, _bcast, msm, optimal_window_bits
@@ -67,7 +76,8 @@ SIZES = {
     "k1_fq": 1 << 22,       # K1 elements, BN254 Fq
     "k1_fr": 1 << 16,       # K1 elements, BN254 Fr
     "k2": (1 << 17) - 1,    # K2 lanes: the T-gather width 2^c - 1
-    "k3": 4096,             # K3 lanes
+    "k3": 4096,             # K3 lanes (the standalone double; no main path launches it)
+    "horner": (15, 17),     # Horner's windows and c at 2^22 (c = 17)
     "k4": 1 << 20,          # K4 lanes
     "ladder": (1 << 20, 4096),  # scalar_mul lanes (the 2^20 SRS), lanes of its plain twin
     "k5": (1024, 4096, 16, 256),  # K5 (R, C), top rows and lanes its plain twins run
@@ -87,8 +97,11 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, at 700 W
 IMAD_PER_CLK_SM = 64       # 32-bit integer multiply-adds per clock per SM, cc 9.0
 SMS = 132
 # word products of one W = 8 Montgomery multiply (CIOS: W^2 for a*b, W^2 + W
-# for m*p); the SASS count of K1's kernel replaces it where cuobjdump runs
+# for m*p): the work of the function, for every operations bound, whatever
+# instructions the kernels' multiply compiles to (the SASS counts are printed
+# as information only)
 WORD_PRODUCTS = 2 * 8 * 8 + 8
+K1_CALLS = 1000  # back-to-back K1 calls at n = 1 for its host cost per call
 
 # name -> (wrapper carrying the launch count, source, TPU kernel it replaces)
 KERNELS = {
@@ -110,14 +123,18 @@ KERNELS = {
                          "tachyon_tpu/ops/pallas_ec.py:209"),
     "lane_fold": (cuda_ec.lane_fold, "tachyon_tpu_torch/csrc/lanes.cu",
                   "tachyon_tpu/ops/pallas_ec.py:209"),
+    "horner": (cuda_ec.horner, "tachyon_tpu_torch/csrc/horner.cu",
+               "tachyon_tpu/ops/pallas_ec.py:232"),
 }
 
 # what the fused ladder replaces beside K4: K3 and the scan's select per
-# bit; what the lane kernels replace beside K2: the JAX loops over it
+# bit; what the lane kernels replace beside K2: the JAX loops over it; what
+# the Horner kernel replaces beside K3: K2's add and the JAX loop
 ALSO_REPLACES = {"scalar_mul_xyzz": ["tachyon_tpu/ops/pallas_ec.py:232",
                                      "tachyon_tpu/math/ec.py:313-338"],
                  "lane_suffix_scan": ["tachyon_tpu/math/msm.py:196-206"],
-                 "lane_fold": ["tachyon_tpu/math/msm.py:209-222"]}
+                 "lane_fold": ["tachyon_tpu/math/msm.py:209-222"],
+                 "horner": ["tachyon_tpu/ops/pallas_ec.py:209", "tachyon_tpu/math/msm.py:418-428"]}
 # K5 at (1024, 8, 4096) and K6 at (256, 8, 512) with one thread per lane,
 # before the segments (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md)
 K5_OLD_MS = 8.4759
@@ -181,6 +198,37 @@ def ladder_muls(scalars: torch.Tensor, pinf: torch.Tensor) -> int:
     return int(torch.where(live, 9 * top + 10 * (pop - 1), 0).sum())
 
 
+def k1_edges(f, device):
+    """Every pair of the edge operands 0, 1, mont(1) = R mod p, 2 and p - 1
+    (so (p - 1)^2 among them) as two (W, 25) word arrays."""
+    vals = [0, 1, f.R_mod_p, 2, f.p - 1]
+    W = limbs.word_count(f)
+    return (limbs.from_ints([x for x in vals for _ in vals], W, device),
+            limbs.from_ints([y for _ in vals for y in vals], W, device))
+
+
+def k1_call_us(f, device) -> tuple[float, float]:
+    """Host microseconds per call, over K1_CALLS calls back to back and one
+    synchronize: K1's wrapper at n = 1, and its ctypes launcher alone with
+    the arguments made once."""
+    a = mont.ones(f, (1,), device)
+    b, out = a.clone(), torch.empty_like(a)
+    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), 1, cuda_mont.consts_ptr(f),
+            limbs.word_count(f), torch.cuda.current_stream().cuda_stream)
+    launcher = _build.launcher("tt_mont_mul")
+
+    def per_call(call) -> float:
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(K1_CALLS):
+            call()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / K1_CALLS * 1e6
+
+    return per_call(lambda: cuda_mont.mul(f, a, b)), per_call(lambda: launcher(*args))
+
+
 def random_elements(f, n: int, g: torch.Generator, device) -> torch.Tensor:
     """n canonical elements (W, n): random words below 2^(bits - 1) < p,
     with zero, one and p - 1 in the first lanes."""
@@ -228,17 +276,20 @@ def bound_ms(nbytes: int, products: int, clock_hz: float) -> tuple[float, str]:
 
 def check(name, got, want, kernel_ms, plain_ms, shape, plain_shape, work, results):
     """Hold a kernel's output against its twin's; record the first (main
-    path) shape's numbers.  work = (bytes, word products, clock in Hz)."""
+    path) shape's numbers.  work = (bytes, word products, clock in Hz); the
+    field multiplies per second are the products' multiplies over the
+    kernel's time."""
     err = word_err(got, want)
     bms, by = bound_ms(*work)
+    rate = work[1] / WORD_PRODUCTS / (kernel_ms / 1e3)
     log(f"[kernel] {name}: shape {shape} max_abs_err {err} kernel {kernel_ms:.4f} ms "
         f"plain {plain_ms:.4f} ms (plain at {plain_shape}) bound {bms:.4f} ms ({by}; "
-        f"{work[0]} bytes, {work[1]} word products)")
+        f"{work[0]} bytes, {work[1]} word products); {rate:.4g} field multiplies per s")
     if err != 0:
         raise AssertionError(f"{name}: kernel disagrees with its plain twin (max_abs_err {err})")
     results.setdefault(name, {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
                               "bound_ms": bms, "bound_by": by, "shape": shape,
-                              "plain_shape": plain_shape})
+                              "plain_shape": plain_shape, "fmul_per_s": rate})
 
 
 def row_tiled(base_x, base_y, R: int, C: int, fixed: int = 0):
@@ -307,6 +358,76 @@ def k2_inputs(f, base_x, base_y, n: int):
     return p, q, 14 * (cls[0] + cls[6]) + 13 * cls[1] + 4 * cls[2]
 
 
+def horner_windows(curve, nwin: int, c: int, seed: int):
+    """nwin window sums for Horner as 4 (W, nwin) XYZZ coords, lifted (zz
+    != 1), from the top window: a multiple P of G, then 2^c P (the add
+    doubles), infinity, the negation of the accumulator 2^c acc (the add
+    cancels to infinity), then multiples of G.  Returns the coords, the
+    host's affine sum and the field multiplies Horner needs on them (9 a
+    doubling of a finite point, 14 an add of two, 13 where it doubles, 4
+    where it cancels)."""
+    mod = curve.F.p
+    G = (int(curve.gen_x), int(curve.gen_y))
+    rng = np.random.default_rng(seed)
+    pts = [host_ec.scalar_mul(G, int(k), 0, mod) for k in rng.integers(1, 1 << 30, nwin)]
+    acc, muls = None, 0
+    for j, k in enumerate(range(nwin - 1, -1, -1)):
+        muls += 0 if acc is None else 9 * c
+        acc = host_ec.scalar_mul(acc, 1 << c, 0, mod)
+        if j == 1:
+            pts[k] = acc
+        elif j == 2:
+            pts[k] = None
+        elif j == 3:
+            pts[k] = (acc[0], -acc[1] % mod)
+        if acc is not None and pts[k] is not None:
+            muls += 13 if pts[k] == acc else 4 if pts[k][0] == acc[0] else 14
+        acc = host_ec.affine_add(acc, pts[k], 0, mod)
+    lam = [int(v) for v in rng.integers(2, 1 << 62, nwin)]
+    rows = [(0, 0, 0, 0) if q is None else
+            (q[0] * l * l % mod, q[1] * l ** 3 % mod, l * l % mod, l ** 3 % mod)
+            for q, l in zip(pts, lam)]
+    return tuple(curve.F.encode([r[i] for r in rows]) for i in range(4)), acc, muls
+
+
+def horner_loop(f, wins, c: int):
+    """Horner as the MSM ran it before the Horner kernel: c K3 launches and
+    one K2 launch a window, on one point."""
+    acc = tuple(torch.zeros_like(wins[0][:, 0]) for _ in range(4))
+    for k in range(wins[0].shape[1] - 1, -1, -1):
+        for _ in range(c):
+            acc = cuda_ec.dbl_xyzz(f, acc)
+        acc = cuda_ec.add_xyzz(f, acc, tuple(t[:, k].contiguous() for t in wins))
+    return acc
+
+
+def horner_check(curve, clock_hz, results) -> None:
+    """The Horner kernel on the 2^22 MSM's windows and c, word for word
+    against its twin and the loop of K3 and K2 launches it replaces, its
+    result against the host's point, timed beside that loop."""
+    f = curve.F.spec
+    nwin, c = SIZES["horner"]
+    wins, want_aff, muls = horner_windows(curve, nwin, c, SEED)
+    got = cuda_ec.horner(f, wins, c)
+    want, plain_ms = timed_once(lambda: cuda_ec.horner_plain(f, wins, c))
+    if word_err(got, horner_loop(f, wins, c)) != 0:
+        raise AssertionError("horner: words differ from the loop of K3 and K2 launches")
+    if sampled_points(curve, curve.to_affine(PointXYZZ(*(t[:, None] for t in got))), [0]) \
+            != [want_aff]:
+        raise AssertionError("horner: the sum differs from the host's point")
+    loop_ms = cuda_ms(lambda: horner_loop(f, wins, c), 20)
+    ms = cuda_ms(lambda: cuda_ec.horner(f, wins, c), 20)
+    work = (4 * 32 * (nwin + 1), WORD_PRODUCTS * muls, clock_hz)
+    log(f"[horner] {nwin} windows, c = {c}: one launch {ms:.4f} ms, the loop of {c * nwin} K3 "
+        f"and {nwin} K2 launches it replaces {loop_ms:.4f} ms; operations bound "
+        f"{bound_ms(*work)[0]:.6f} ms; the floor is a serial chain of {c * nwin} doublings "
+        f"and {nwin} adds: {muls} field multiplies in a row, {ms * 1e6 / muls:.1f} ns each")
+    results["horner_loop_ms"] = loop_ms
+    results["horner_chain"] = {"doublings": c * nwin, "adds": nwin, "field_multiplies": muls}
+    check("horner", got, want, ms, plain_ms, f"4 x (8, {nwin}), c = {c}",
+          f"4 x (8, {nwin}), c = {c}", work, results)
+
+
 def lifted(f, x, y, lam):
     """Affine (x, y) as XYZZ (x l^2, y l^3, l^2, l^3): zz != 1."""
     l2 = mont.mul(f, lam, lam)
@@ -314,13 +435,9 @@ def lifted(f, x, y, lam):
     return (mont.mul(f, x, l2), mont.mul(f, y, l3), l2, l3)
 
 
-def phase_kernels(device, base_x, base_y, clock_hz, mm, results):
-    """mm: 32x32-bit multiply-adds of one field multiply, for the bounds."""
-    g = torch.Generator(device=device)
-    g.manual_seed(SEED)
-    curve = curves.bn254_g1(device)
-    fq, fr = curve.F.spec, curve.SF.spec
-
+def k1_check(fq, fr, g, device, clock_hz, results) -> None:
+    """K1 at both main paths' shapes against its twin; its edge operands and
+    a full-width field word for word; its host cost per call."""
     # K1 on 2^22 Fq and 2^16 Fr elements
     for f, n in ((fq, SIZES["k1_fq"]), (fr, SIZES["k1_fr"])):
         a, b = random_elements(f, n, g, device), random_elements(f, n, g, device)
@@ -330,8 +447,34 @@ def phase_kernels(device, base_x, base_y, clock_hz, mm, results):
         torch.cuda.synchronize()
         check("mont_mul", (got,), (want,), cuda_ms(lambda: cuda_mont.mul(f, a, b), 20),
               cuda_ms(lambda: cuda_mont.mul_plain(f, a, b), 2), f"{f.name} (8, {n})",
-              f"{f.name} (8, {n})", (3 * 32 * n, mm * n, clock_hz), results)
+              f"{f.name} (8, {n})", (3 * 32 * n, WORD_PRODUCTS * n, clock_hz), results)
         del want
+    # edge operands word for word, and a full-width p (secp256k1's Fq), which
+    # takes the 64-bit CIOS form of the multiply
+    secp = presets.SECP256K1_FQ
+    for f in (fq, fr, secp):
+        a, b = k1_edges(f, device)
+        if f is secp:
+            a = torch.cat([a, random_elements(f, SIZES["k1_fr"], g, device)], 1)
+            b = torch.cat([b, random_elements(f, SIZES["k1_fr"], g, device)], 1)
+        err = word_err((cuda_mont.mul(f, a, b),), (cuda_mont.mul_plain(f, a, b),))
+        log(f"[k1-edges] {f.name}: {a.shape[1]} products (0, 1, mont(1), 2, p - 1 pairwise"
+            f"{', then random' if f is secp else ''}) max_abs_err {err}")
+        if err != 0:
+            raise AssertionError(f"mont_mul: {f.name} edge operands differ from the plain twin")
+    wrapper_us, launcher_us = k1_call_us(fr, device)
+    log(f"[k1-call] {K1_CALLS} calls at n = 1, back to back: the wrapper {wrapper_us:.2f} us "
+        f"per call, its ctypes launcher alone {launcher_us:.2f} us")
+    results["mont_mul_call_us"] = {"wrapper": wrapper_us, "launcher": launcher_us}
+
+
+def phase_kernels(device, base_x, base_y, clock_hz, results):
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED)
+    curve = curves.bn254_g1(device)
+    fq, fr = curve.F.spec, curve.SF.spec
+
+    k1_check(fq, fr, g, device, clock_hz, results)
 
     # K2 on the T-gather width at c = 17: 2^17 - 1 lanes, with P = Q, P = -Q
     # and infinity lanes
@@ -345,9 +488,10 @@ def phase_kernels(device, base_x, base_y, clock_hz, mm, results):
         raise AssertionError("add_xyzz: P + (-P) is not infinity")
     check("add_xyzz", got, want, cuda_ms(lambda: cuda_ec.add_xyzz(fq, p, q), 20),
           cuda_ms(lambda: cuda_ec.add_xyzz_plain(fq, p, q), 2), f"4 x (8, {n})",
-          f"4 x (8, {n})", (12 * 32 * n, mm * muls, clock_hz), results)
+          f"4 x (8, {n})", (12 * 32 * n, WORD_PRODUCTS * muls, clock_hz), results)
 
-    # K3 on 4096 lanes (the Horner doublings run on one), with infinity lanes
+    # K3 on 4096 lanes, with infinity lanes (the standalone double; Horner's
+    # doublings run in the Horner kernel, below)
     n3 = SIZES["k3"]
     d_in = tuple(mont.select(lane[:n3] % 5 == 0, zero[:, :n3], t[:, :n3].contiguous())
                  for t in got)
@@ -356,7 +500,9 @@ def phase_kernels(device, base_x, base_y, clock_hz, mm, results):
     live3 = int((~mont.is_zero(fq, d_in[2])).sum())
     check("dbl_xyzz", got3, want3, cuda_ms(lambda: cuda_ec.dbl_xyzz(fq, d_in), 20),
           cuda_ms(lambda: cuda_ec.dbl_xyzz_plain(fq, d_in), 2), f"4 x (8, {n3})",
-          f"4 x (8, {n3})", (8 * 32 * n3, mm * 9 * live3, clock_hz), results)
+          f"4 x (8, {n3})", (8 * 32 * n3, WORD_PRODUCTS * 9 * live3, clock_hz), results)
+
+    horner_check(curve, clock_hz, results)
 
     # K4 on 2^20 lanes (scalar_mul's width in the KZG setup): P lifted with
     # zz != 1; lanes by lane % 7: 1 P = Q, 2 P = -Q, 3 p = inf, 4 q = inf,
@@ -386,7 +532,7 @@ def phase_kernels(device, base_x, base_y, clock_hz, mm, results):
     check("madd_xyzz", got4, want4, cuda_ms(lambda: cuda_ec.madd_xyzz(fq, p4, qx, qy, qinf), 20),
           cuda_ms(lambda: cuda_ec.madd_xyzz_plain(fq, p4, qx, qy, qinf), 2),
           f"4 x (8, {n4}) + 2 x (8, {n4}) + ({n4},)", f"(8, {n4})",
-          ((6 * 32 + 4 + 4 * 32) * n4, mm * muls4, clock_hz), results)
+          ((6 * 32 + 4 + 4 * 32) * n4, WORD_PRODUCTS * muls4, clock_hz), results)
     del p4, qx, qy, got4, want4
 
     # The fused ladder at 2^20 lanes (the setup's width): P = G, but the odd
@@ -417,7 +563,7 @@ def phase_kernels(device, base_x, base_y, clock_hz, mm, results):
     check("scalar_mul_xyzz", tuple(t[:, :nchk] for t in got_l), want_l,
           cuda_ms(lambda: cuda_ec.scalar_mul(fq, px, py, pinf, sc), 3), plain_l,
           f"2 x (8, {nl}) + ({nl},) + (8, {nl})", f"(8, {nchk})",
-          ((2 * 32 + 4 + 32 + 4 * 32) * nl, mm * ladder_muls(sc, pinf), clock_hz), results)
+          ((2 * 32 + 4 + 32 + 4 * 32) * nl, WORD_PRODUCTS * ladder_muls(sc, pinf), clock_hz), results)
     del px, py, sc, got_l, aff
 
     # K5 at R = 1024, C = 4096 (2^22 points) with infinity lanes; row r of
@@ -465,7 +611,7 @@ def phase_kernels(device, base_x, base_y, clock_hz, mm, results):
                 for name, args in plan.launches]
     live5 = R * C - int(inf.sum())
     k5_ms = cuda_ms(lambda: cuda_msm.suffix_sweep(fq, x, y, inf, dc), 3)
-    work5 = (R * C * (32 + 32 + 4) + 4 * 32 * C + 4 * 32 * R * C, mm * 10 * live5, clock_hz)
+    work5 = (R * C * (32 + 32 + 4) + 4 * 32 * C + 4 * 32 * R * C, WORD_PRODUCTS * 10 * live5, clock_hz)
     log(f"[k5] S={S} segments of {L} rows (top {R - top}); totals {phase_ms[0]:.4f} ms, "
         f"carries {phase_ms[1]:.4f} ms, emit {phase_ms[2]:.4f} ms; whole {k5_ms:.4f} ms "
         f"(before the redesign {K5_OLD_MS} ms, bound {bound_ms(*work5)[0]:.4f} ms); "
@@ -481,10 +627,10 @@ def phase_kernels(device, base_x, base_y, clock_hz, mm, results):
     # K6 at the two main paths' (R2, C2), with its segment sweep, over XYZZ
     # rows cut from the suffix sums; then the lane scan and fold over lanes
     # cut from them
-    k6_check(fq, suf, d2, g, clock_hz, mm, results)
+    k6_check(fq, suf, d2, g, clock_hz, results)
     for C in SIZES["scan"]:
-        lane_check(fq, "lane_suffix_scan", suf, C, g, clock_hz, mm, results)
-    lane_check(fq, "lane_fold", suf, SIZES["fold"], g, clock_hz, mm, results)
+        lane_check(fq, "lane_suffix_scan", suf, C, g, clock_hz, results)
+    lane_check(fq, "lane_fold", suf, SIZES["fold"], g, clock_hz, results)
 
 
 def k6_rows(suf, R: int, C: int, L: int, g):
@@ -501,15 +647,15 @@ def k6_rows(suf, R: int, C: int, L: int, g):
     return tuple(rows)
 
 
-def k6_work(rows, clock_hz, mm):
+def k6_work(rows, clock_hz):
     """K6's bytes (rows and D read, the totals written) and the field
     multiplies its live rows need (14 each)."""
     R, _, C = rows[0].shape
     live = int((rows[2] != 0).any(dim=1).sum())  # zz != 0
-    return (4 * 32 * R * C + 2 * 4 * 32 * C, mm * 14 * live, clock_hz)
+    return (4 * 32 * R * C + 2 * 4 * 32 * C, WORD_PRODUCTS * 14 * live, clock_hz)
 
 
-def k6_check(f, suf, d2, g, clock_hz, mm, results) -> None:
+def k6_check(f, suf, d2, g, clock_hz, results) -> None:
     """K6 at each (R, C) of SIZES["k6"] at the segment count it picks: word
     for word against the segmented twin, as points against the sequential
     twin, each phase timed, the chain combine (one thread per lane) timed
@@ -544,7 +690,7 @@ def k6_check(f, suf, d2, g, clock_hz, mm, results) -> None:
             combine, combine_args = chain.launches[1]
             chain_ms = cuda_ms(lambda: _build.launch(combine, *combine_args), 20)
         k6_ms = cuda_ms(lambda: cuda_msm.reduce_sweep(f, rows, dc), 20)
-        work = k6_work(rows, clock_hz, mm)
+        work = k6_work(rows, clock_hz)
         log(f"[k6] ({R}, 8, {C}): S={plan.S} segments of {L} rows, F={F} "
             f"threads per lane; each launch (partials, then the tree combine) {phase_ms} ms, "
             f"the chain combine {chain_ms} ms; whole {k6_ms:.4f} ms (one thread per lane "
@@ -646,7 +792,7 @@ def lane_adds(name: str, fin: torch.Tensor) -> tuple[int, int]:
     return need, sched
 
 
-def lane_check(f, name: str, suf, C: int, g, clock_hz, mm, results) -> None:
+def lane_check(f, name: str, suf, C: int, g, clock_hz, results) -> None:
     """The lane scan or fold on C lanes against its plain twin, word for
     word, and against the loop of K2 launches it replaces; timed beside
     that loop."""
@@ -662,11 +808,11 @@ def lane_check(f, name: str, suf, C: int, g, clock_hz, mm, results) -> None:
     steps_ms = cuda_ms(lambda: k2_steps(f, name, u), 20)
     out_pts = C if name == "lane_suffix_scan" else 1
     adds, sched = lane_adds(name, ~mont.is_zero(f, u[2]))
-    work = (4 * 32 * (C + out_pts), mm * 14 * adds, clock_hz)
+    work = (4 * 32 * (C + out_pts), WORD_PRODUCTS * 14 * adds, clock_hz)
     ms = cuda_ms(lambda: wrapper(f, u), 20)
     log(f"[lanes] {name} C={C}: one launch {ms:.4f} ms, the loop of K2 launches and shifts it "
         f"replaces {steps_ms:.4f} ms; {adds} adds of finite points needed, {sched} made in "
-        f"its order (bound at those: {bound_ms(work[0], mm * 14 * sched, clock_hz)[0]:.4f} ms)")
+        f"its order (bound at those: {bound_ms(work[0], WORD_PRODUCTS * 14 * sched, clock_hz)[0]:.4f} ms)")
     results.setdefault(f"{name}_before_ms", steps_ms)
     results.setdefault(f"{name}_schedule_adds", sched)
     check(name, got, want, ms, cuda_ms(lambda: twin(f, u), 2), f"4 x (8, {C})", f"4 x (8, {C})",
@@ -685,11 +831,13 @@ def slice_inputs(curve, n: int):
     return points, limbs.from_jax_limbs(sc, curve.device), ks, sc
 
 
-MSM_PATH = ("mont_mul", "add_xyzz", "dbl_xyzz", "suffix_sweep", "reduce_sweep",
+MSM_PATH = ("mont_mul", "add_xyzz", "horner", "suffix_sweep", "reduce_sweep",
             "lane_suffix_scan", "lane_fold")
-K2_PER_WINDOW = 5  # u, W - D, the T-gather add, the unbias, Horner's add
-# madd_xyzz is on neither path: scalar_mul is one ladder launch
+K2_PER_WINDOW = 4  # u, W - D, the T-gather add, the unbias
+# madd_xyzz and dbl_xyzz are on neither path: scalar_mul is one ladder
+# launch, Horner's doublings run in the Horner kernel
 KZG_PATH = ("scalar_mul_xyzz",) + MSM_PATH
+KZG_SWEEP_MSMS = 3  # commit, commit_lagrange, open_at; the 64-point MSMs are naive
 
 
 def reset_launches() -> None:
@@ -745,6 +893,9 @@ def phase_slice(device):
     if launches["add_xyzz"] != K2_PER_WINDOW * nwin:
         raise AssertionError(f"K2 launched {launches['add_xyzz']} times on {nwin} windows, "
                              f"not {K2_PER_WINDOW} a window")
+    if launches["horner"] != 1 or launches["dbl_xyzz"] != 0:
+        raise AssertionError(f"one MSM launched Horner {launches['horner']} times and K3 "
+                             f"{launches['dbl_xyzz']} times, not 1 and 0")
     times = []
     for _ in range(MSM_RUNS):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -827,6 +978,9 @@ def phase_kzg(device):
                   lambda: kzg.to_int_point(pedersen.commit(g1, ped, msgs_std, blind)))
     launches = read_launches(KZG_PATH)
     peak = torch.cuda.max_memory_allocated()
+    if launches["horner"] != KZG_SWEEP_MSMS or launches["dbl_xyzz"] != 0:
+        raise AssertionError(f"the KZG path launched Horner {launches['horner']} times and K3 "
+                             f"{launches['dbl_xyzz']} times, not {KZG_SWEEP_MSMS} and 0")
 
     t0 = time.perf_counter()
     ok = kzg.verify(params, c_commit, z, proof)
@@ -871,9 +1025,12 @@ def phase_kzg(device):
     return launches
 
 
-def sass_word_products() -> dict:
-    """IMAD.WIDE instructions per kernel in the built library's SASS (one
-    per 32x32 -> 64-bit word product), when cuobjdump is there."""
+SASS_OP = re.compile(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+
+
+def sass_opcodes() -> dict:
+    """Opcode counts (with their modifiers) per kernel in the built
+    library's SASS, when cuobjdump is there."""
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     if not tool.exists():
         return {}
@@ -883,10 +1040,24 @@ def sass_word_products() -> dict:
     for line in out.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            counts[name] = 0
-        elif name and "IMAD.WIDE" in line:
-            counts[name] += 1
+            counts[name] = Counter()
+        elif name and (m := SASS_OP.search(line)):
+            counts[name][m.group(1)] += 1
     return counts
+
+
+def sass_mix(ops: Counter) -> dict:
+    """A kernel's instructions by group: IMAD.WIDE(.U32), IMAD.HI, IMAD.X,
+    the other IMADs, IADD3(.X), the rest."""
+    mix = Counter()
+    for op, n in ops.items():
+        group = ("IMAD.WIDE" if op.startswith("IMAD.WIDE") else
+                 "IMAD.HI" if op.startswith("IMAD.HI") else
+                 "IMAD.X" if op.startswith("IMAD") and op.endswith(".X") else
+                 "IMAD" if op.startswith("IMAD") else
+                 "IADD3" if op.startswith("IADD3") else "other")
+        mix[group] += n
+    return dict(mix)
 
 
 def main() -> int:
@@ -910,18 +1081,25 @@ def main() -> int:
     for line in _build.nvcc_log().splitlines():
         if "entry function" in line or "registers" in line or "spill" in line:
             log(f"[ptxas] {line.strip()}")
-    sass = sass_word_products()
-    for fn, cnt in sass.items():
-        log(f"[sass] {cnt} IMAD.WIDE in {fn}")
-    # K1's kernel is one field multiply
-    mm = next((c for fn, c in sass.items() if "mont_mul_kernel" in fn), WORD_PRODUCTS)
-    log(f"[bound] {mm} multiply-adds per field multiply, {IMAD_PER_CLK_SM} per clock per SM "
-        f"x {SMS} SMs x {clock_hz / 1e6:.0f} MHz; {HBM_BYTES_PER_S / 1e12} TB/s")
+    sass = sass_opcodes()
+    for fn, ops in sass.items():
+        wide = sum(n for op, n in ops.items() if op.startswith("IMAD.WIDE"))
+        log(f"[sass] {wide} IMAD.WIDE of {sum(ops.values())} instructions in {fn}")
+    # K1's kernel is one field multiply and its loads and stores
+    for fn, ops in sass.items():
+        if "mont_mul_kernel" in fn:
+            total = sum(ops.values())
+            log(f"[sass-mix] {fn}: {sass_mix(ops)}; {total} instructions, "
+                f"{total / WORD_PRODUCTS:.2f} per word product; by opcode "
+                f"{dict(ops.most_common())}")
+    log(f"[bound] {WORD_PRODUCTS} word products per field multiply (2 W^2 + W at W = 8), "
+        f"{IMAD_PER_CLK_SM} per clock per SM x {SMS} SMs x {clock_hz / 1e6:.0f} MHz; "
+        f"{HBM_BYTES_PER_S / 1e12} TB/s")
 
     rng = np.random.default_rng(SEED)
     _, base_x, base_y = base_points(curves.bn254_g1(device), rng)
     results: dict = {}
-    phase_kernels(device, base_x, base_y, clock_hz, mm, results)
+    phase_kernels(device, base_x, base_y, clock_hz, results)
     torch.cuda.empty_cache()
     msm_launches = phase_slice(device)
     torch.cuda.empty_cache()
@@ -934,7 +1112,7 @@ def main() -> int:
                  "launches": msm_launches[name] + kzg_launches[name],
                  "max_abs_err": r["max_abs_err"],
                  "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                 "bound_by": r["bound_by"], "library_ms": None,
+                 "bound_by": r["bound_by"], "library_ms": None, "fmul_per_s": r["fmul_per_s"],
                  "launches_by_path": {f"msm_2^{LOG_N}": msm_launches[name],
                                       f"kzg_2^{KZG_LOG_N}": kzg_launches[name]},
                  "shape": r["shape"], "plain_shape": r["plain_shape"]}
@@ -944,6 +1122,11 @@ def main() -> int:
             entry.update(results["suffix_sweep_phases"])
         if name == "reduce_sweep":
             entry.update(results["reduce_sweep_segments"])
+        if name == "mont_mul":
+            entry["call_us"] = results["mont_mul_call_us"]
+        if name == "horner":
+            entry["k3_k2_loop_ms"] = results["horner_loop_ms"]
+            entry["chain"] = results["horner_chain"]
         if f"{name}_before_ms" in results:
             entry["k2_loop_ms"] = results[f"{name}_before_ms"]
             entry["schedule_adds"] = results[f"{name}_schedule_adds"]

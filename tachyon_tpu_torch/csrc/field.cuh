@@ -10,9 +10,12 @@
 //
 // Additions and subtractions are PTX carry chains (add.cc / addc / sub.cc /
 // subc; 13% faster on the 2^22 MSM than the same chains in portable C++).
-// The multiply is CIOS on 32-bit words with 64-bit products and two words
-// above the top word, so it stays right for moduli up to 2^(32 W) - 1
-// (secp256k1's p is a full 256 bits).
+// The multiply has two forms, chosen by a template bool from p's top word:
+// fp_mul<W, true> for p < 2^(32 W - 1) (BN254: a spare bit), 32-bit PTX
+// multiply-add chains in the even/odd layout of sppark's mont_t; and
+// fp_mul<W, false>, CIOS on 64-bit C++ products with two words above the
+// top, right for moduli up to 2^(32 W) - 1 (secp256k1's p is a full 256
+// bits).  The point kernels use the first and take only spare-bit fields.
 #pragma once
 
 #include <cstdint>
@@ -139,44 +142,159 @@ __device__ __forceinline__ void fp_sub(uint32_t r[W], const uint32_t a[W], const
   (void)addc(0u, 0u);  // close the chain; the carry out is dropped
 }
 
-// CIOS Montgomery product r = a * b * R^-1 mod p, canonical.  r may alias a or b.
-// Each round adds a * b[i], then m * p with m = t[0] * n0inv so that the low
-// word cancels, and shifts t down one word; t < 2p after every round, so the
-// two words above the top (t[W], t[W+1]) never overflow.  The products are
-// plain 64-bit C++ (IMAD.WIDE): the same CIOS on volatile PTX mad.lo.cc /
-// madc.hi.cc chains measured 17% slower on the 2^22 MSM (volatile asm likely
-// keeps ptxas from interleaving the rows).
+// p < 2^(32 W - 1), the condition for fp_mul<W, true>: the top word's high bit is clear.
 template <int W>
+inline bool has_spare_bit(const uint32_t* consts) {
+  return (consts[W - 1] >> 31) == 0;
+}
+
+// ---- the spare-bit multiply: sppark's even/odd layout --------------------------
+// The running sum t is kept as two W-word arrays, t = even + odd * 2^32:
+// the product a[j] * b_i of an even j lands in even[j..j+1], of an odd j in
+// odd[j-1..j], so neither array has two products on one word and each row
+// is one unbroken chain of mad.lo / mad.hi with the carry in the flag (in
+// SASS, IMAD.WIDE.U32.X with the carry in a predicate): one wide integer
+// multiply-add per word product, and no separate add for a carry.
+// t < 2 p 2^32 < 2^(32 (W + 1)) before every shift (p < 2^(32 W - 1)), so
+// the odd array never carries out of its top word.  Each chain is one asm
+// statement: as separate statements, the compiler reordered them apart
+// from the carry flag they pass (wrong words on the H100).  Written for
+// W = 8, the only word count the kernels are instantiated for.
+
+// One CIOS round on t = even + odd * 2^32: t = (t + a * bi + m * p) / 2^32
+// with m = t[0] * n0inv.  After it the roles swap: the caller passes the
+// arrays in the other order next round, since the shift moves odd to word 0.
+template <int W>
+__device__ __forceinline__ void mad_n_redc(uint32_t even[W], uint32_t odd[W], const uint32_t a[W],
+                                           uint32_t bi, const FieldConst<W>& f, bool first) {
+  static_assert(W == 8, "the chains below are written for W = 8");
+  if (first) {
+#pragma unroll
+    for (int j = 0; j < W; j += 2) {
+      even[j] = a[j] * bi;
+      even[j + 1] = __umulhi(a[j], bi);
+      odd[j] = a[j + 1] * bi;
+      odd[j + 1] = __umulhi(a[j + 1], bi);
+    }
+  } else {
+    // the last round left even[0] = 0: even[1] joins word 0 and even[2..]
+    // shift into the odd array, which takes a[odd] * bi; then even takes
+    // a[even] * bi in a fresh chain whose carry goes to odd's top word
+    asm(
+      "add.cc.u32 %0, %0, %9;\n\t"
+      "madc.lo.cc.u32 %8, %17, %24, %10;\n\t"
+      "madc.hi.cc.u32 %9, %17, %24, %11;\n\t"
+      "madc.lo.cc.u32 %10, %19, %24, %12;\n\t"
+      "madc.hi.cc.u32 %11, %19, %24, %13;\n\t"
+      "madc.lo.cc.u32 %12, %21, %24, %14;\n\t"
+      "madc.hi.cc.u32 %13, %21, %24, %15;\n\t"
+      "madc.lo.cc.u32 %14, %23, %24, 0;\n\t"
+      "madc.hi.u32 %15, %23, %24, 0;\n\t"
+      "mad.lo.cc.u32 %0, %16, %24, %0;\n\t"
+      "madc.hi.cc.u32 %1, %16, %24, %1;\n\t"
+      "madc.lo.cc.u32 %2, %18, %24, %2;\n\t"
+      "madc.hi.cc.u32 %3, %18, %24, %3;\n\t"
+      "madc.lo.cc.u32 %4, %20, %24, %4;\n\t"
+      "madc.hi.cc.u32 %5, %20, %24, %5;\n\t"
+      "madc.lo.cc.u32 %6, %22, %24, %6;\n\t"
+      "madc.hi.cc.u32 %7, %22, %24, %7;\n\t"
+      "addc.u32 %15, %15, 0;\n\t"
+      : "+r"(even[0]), "+r"(even[1]), "+r"(even[2]), "+r"(even[3]), "+r"(even[4]), "+r"(even[5]),
+        "+r"(even[6]), "+r"(even[7]), "+r"(odd[0]), "+r"(odd[1]), "+r"(odd[2]), "+r"(odd[3]),
+        "+r"(odd[4]), "+r"(odd[5]), "+r"(odd[6]), "+r"(odd[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]), "r"(a[7]),
+        "r"(bi));
+  }
+  const uint32_t mi = even[0] * f.n0inv;
+  // odd += p[odd] * mi (no carry out), even += p[even] * mi
+  asm(
+      "mad.lo.cc.u32 %8, %17, %24, %8;\n\t"
+      "madc.hi.cc.u32 %9, %17, %24, %9;\n\t"
+      "madc.lo.cc.u32 %10, %19, %24, %10;\n\t"
+      "madc.hi.cc.u32 %11, %19, %24, %11;\n\t"
+      "madc.lo.cc.u32 %12, %21, %24, %12;\n\t"
+      "madc.hi.cc.u32 %13, %21, %24, %13;\n\t"
+      "madc.lo.cc.u32 %14, %23, %24, %14;\n\t"
+      "madc.hi.u32 %15, %23, %24, %15;\n\t"
+      "mad.lo.cc.u32 %0, %16, %24, %0;\n\t"
+      "madc.hi.cc.u32 %1, %16, %24, %1;\n\t"
+      "madc.lo.cc.u32 %2, %18, %24, %2;\n\t"
+      "madc.hi.cc.u32 %3, %18, %24, %3;\n\t"
+      "madc.lo.cc.u32 %4, %20, %24, %4;\n\t"
+      "madc.hi.cc.u32 %5, %20, %24, %5;\n\t"
+      "madc.lo.cc.u32 %6, %22, %24, %6;\n\t"
+      "madc.hi.cc.u32 %7, %22, %24, %7;\n\t"
+      "addc.u32 %15, %15, 0;\n\t"
+      : "+r"(even[0]), "+r"(even[1]), "+r"(even[2]), "+r"(even[3]), "+r"(even[4]), "+r"(even[5]),
+        "+r"(even[6]), "+r"(even[7]), "+r"(odd[0]), "+r"(odd[1]), "+r"(odd[2]), "+r"(odd[3]),
+        "+r"(odd[4]), "+r"(odd[5]), "+r"(odd[6]), "+r"(odd[7])
+      : "r"(f.p[0]), "r"(f.p[1]), "r"(f.p[2]), "r"(f.p[3]), "r"(f.p[4]), "r"(f.p[5]), "r"(f.p[6]),
+        "r"(f.p[7]), "r"(mi));
+}
+
+// CIOS Montgomery product r = a * b * R^-1 mod p, canonical.  r may alias a or b.
+//
+// SPARE (p < 2^(32 W - 1)): the even/odd chains above; the rounds leave
+// t < 2p in W words after the merge.  Otherwise each round adds a * b[i],
+// then m * p with m = t[0] * n0inv so that the low word cancels, and shifts
+// t down one word; t < 2p after every round, so the two words above the
+// top (t[W], t[W+1]) never overflow.  Those products are plain 64-bit C++
+// (IMAD.WIDE with a separate add for each carry).
+template <int W, bool SPARE = true>
 __device__ __forceinline__ void fp_mul(uint32_t r[W], const uint32_t a[W], const uint32_t b[W],
                                        const FieldConst<W>& f) {
-  uint32_t t[W + 2];
+  if constexpr (SPARE) {
+    uint32_t even[W], odd[W];
 #pragma unroll
-  for (int i = 0; i < W + 2; ++i) t[i] = 0;
-#pragma unroll
-  for (int i = 0; i < W; ++i) {
-    uint64_t c = 0;  // t += a * b[i]
-#pragma unroll
-    for (int j = 0; j < W; ++j) {
-      uint64_t s = (uint64_t)a[j] * b[i] + t[j] + c;
-      t[j] = (uint32_t)s;
-      c = s >> 32;
+    for (int i = 0; i < W; i += 2) {
+      mad_n_redc<W>(even, odd, a, b[i], f, i == 0);
+      mad_n_redc<W>(odd, even, a, b[i + 1], f, false);
     }
-    uint64_t s = (uint64_t)t[W] + c;
-    t[W] = (uint32_t)s;
-    t[W + 1] = (uint32_t)(s >> 32);
-    uint32_t m = t[0] * f.n0inv;
-    c = ((uint64_t)m * f.p[0] + t[0]) >> 32;
+    // merge: t = odd + even * 2^32 with odd[0] = 0, so t / 2^32 = even + odd[1..]
+    asm(
+      "add.cc.u32 %0, %0, %8;\n\t"
+      "addc.cc.u32 %1, %1, %9;\n\t"
+      "addc.cc.u32 %2, %2, %10;\n\t"
+      "addc.cc.u32 %3, %3, %11;\n\t"
+      "addc.cc.u32 %4, %4, %12;\n\t"
+      "addc.cc.u32 %5, %5, %13;\n\t"
+      "addc.cc.u32 %6, %6, %14;\n\t"
+      "addc.u32 %7, %7, 0;\n\t"
+        : "+r"(even[0]), "+r"(even[1]), "+r"(even[2]), "+r"(even[3]), "+r"(even[4]), "+r"(even[5]),
+          "+r"(even[6]), "+r"(even[7])
+        : "r"(odd[1]), "r"(odd[2]), "r"(odd[3]), "r"(odd[4]), "r"(odd[5]), "r"(odd[6]),
+          "r"(odd[7]));
+    fp_reduce_once<W>(r, even, 0u, f);
+  } else {
+    uint32_t t[W + 2];
 #pragma unroll
-    for (int j = 1; j < W; ++j) {
-      uint64_t u = (uint64_t)m * f.p[j] + t[j] + c;
-      t[j - 1] = (uint32_t)u;
-      c = u >> 32;
+    for (int i = 0; i < W + 2; ++i) t[i] = 0;
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      uint64_t c = 0;  // t += a * b[i]
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+        uint64_t s = (uint64_t)a[j] * b[i] + t[j] + c;
+        t[j] = (uint32_t)s;
+        c = s >> 32;
+      }
+      uint64_t s = (uint64_t)t[W] + c;
+      t[W] = (uint32_t)s;
+      t[W + 1] = (uint32_t)(s >> 32);
+      uint32_t m = t[0] * f.n0inv;
+      c = ((uint64_t)m * f.p[0] + t[0]) >> 32;
+#pragma unroll
+      for (int j = 1; j < W; ++j) {
+        uint64_t u = (uint64_t)m * f.p[j] + t[j] + c;
+        t[j - 1] = (uint32_t)u;
+        c = u >> 32;
+      }
+      s = (uint64_t)t[W] + c;
+      t[W - 1] = (uint32_t)s;
+      t[W] = t[W + 1] + (uint32_t)(s >> 32);
     }
-    s = (uint64_t)t[W] + c;
-    t[W - 1] = (uint32_t)s;
-    t[W] = t[W + 1] + (uint32_t)(s >> 32);
+    fp_reduce_once<W>(r, t, t[W], f);
   }
-  fp_reduce_once<W>(r, t, t[W], f);
 }
 
 template <int W>

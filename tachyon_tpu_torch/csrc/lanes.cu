@@ -28,6 +28,8 @@
 // below the half at every step, so one block of C / 2 threads computes
 // exactly those, the first step from device memory and the rest through
 // shared memory (32 KB at C = 512), with the same pairs in the same order.
+// The sum's W words go out ostride apart, so the MSM writes each window's
+// sum straight into column k of the (W, nwin) array that Horner reads.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -93,13 +95,13 @@ __global__ void __launch_bounds__(SCAN_THREADS)
 }
 
 // p: 4 x (W, C) with C a power of two, 2 <= C <= 2 FOLD_THREADS; one block
-// of C / 2 threads; out: 4 x (W,).
+// of C / 2 threads; out: 4 x W words, word i at o[i * ostride].
 template <int W>
 __global__ void __launch_bounds__(FOLD_THREADS)
     lane_fold_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
                      const uint32_t* __restrict__ pzz, const uint32_t* __restrict__ pzzz,
-                     uint32_t* ox, uint32_t* oy, uint32_t* ozz, uint32_t* ozzz, int64_t C,
-                     FieldConst<W> f) {
+                     uint32_t* ox, uint32_t* oy, uint32_t* ozz, uint32_t* ozzz,
+                     int64_t ostride, int64_t C, FieldConst<W> f) {
   __shared__ uint32_t sh[4 * W * FOLD_THREADS];
   const int t = threadIdx.x, half = blockDim.x;
   Xyzz<W> a, b;
@@ -115,7 +117,7 @@ __global__ void __launch_bounds__(FOLD_THREADS)
     }
     __syncthreads();
   }
-  if (t == 0) xyzz_store<W>(ox, oy, ozz, ozzz, 1, 0, a);
+  if (t == 0) xyzz_store<W>(ox, oy, ozz, ozzz, ostride, 0, a);
 }
 
 static int bit_length(int64_t v) {
@@ -158,14 +160,15 @@ extern "C" cudaError_t tt_lane_suffix_scan(const void* ux, const void* uy, const
 
 extern "C" cudaError_t tt_lane_fold(const void* px, const void* py, const void* pzz,
                                     const void* pzzz, void* ox, void* oy, void* ozz, void* ozzz,
-                                    int64_t C, const uint32_t* consts, int W, void* stream) {
+                                    int64_t ostride, int64_t C, const uint32_t* consts, int W,
+                                    void* stream) {
   if (C < 2 || C > 2 * FOLD_THREADS || (C & (C - 1)) != 0) return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (W) {
     case 8:
       lane_fold_kernel<8><<<1, (unsigned)(C / 2), 0, s>>>(
-          U32C(px), U32C(py), U32C(pzz), U32C(pzzz), U32(ox), U32(oy), U32(ozz), U32(ozzz), C,
-          load_consts<8>(consts));
+          U32C(px), U32C(py), U32C(pzz), U32C(pzzz), U32(ox), U32(oy), U32(ozz), U32(ozzz),
+          ostride, C, load_consts<8>(consts));
       break;
     default:
       return cudaErrorInvalidValue;

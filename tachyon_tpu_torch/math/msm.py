@@ -10,7 +10,9 @@ pos_b = searchsorted(d_sorted, b).  Per window: one stable sort, a gather
 into C lanes x R rows, the K5 sweep (per-lane suffix sums from a blind D),
 a Hillis-Steele scan of the lane totals (one launch of the lane scan, K2's
 add), the T-gather at the bucket starts (K2), the K6 sweep and a fold (one
-launch of the lane fold); Horner across windows (K3, K2).
+launch of the lane fold, into the window's column of a (W, nwin) array);
+then Horner across all windows in one launch (``cuda_ec.horner``: K3's
+doublings and K2's add in one thread).
 As in the JAX package, n <= 128 takes the naive path instead: a batched
 double-and-add (``scalar_mul``: one launch of the fused ladder) and a tree
 reduce (K2).
@@ -18,8 +20,8 @@ reduce (K2).
 The XLA steps that are not Pallas kernels map to PyTorch calls:
 ``lax.sort_key_val`` -> ``torch.sort(stable=True)``, ``jnp.take`` ->
 indexing, ``jnp.searchsorted`` -> ``torch.searchsorted``; the window
-loop and Horner's ``fori_loop`` -> Python loops, and the lane scan's and
-fold's ``fori_loop`` over K2 -> one kernel each.
+loop -> a Python loop, and Horner's ``fori_loop`` over K3 and K2 and the
+lane scan's and fold's ``fori_loop`` over K2 -> one kernel each.
 """
 from __future__ import annotations
 
@@ -93,10 +95,11 @@ def _suffix_scan_lanes(curve: SWCurve, u: PointXYZZ) -> PointXYZZ:
     return PointXYZZ(*cuda_ec.lane_suffix_scan(curve.F.spec, tuple(u)))
 
 
-def _fold_reduce_lanes(curve: SWCurve, pts: PointXYZZ) -> PointXYZZ:
+def _fold_reduce_lanes(curve: SWCurve, pts: PointXYZZ, out=None) -> PointXYZZ:
     """Sum over the last axis (power-of-two length) by folding in half at
-    fixed width; the result is lane 0 (one kernel launch on the card)."""
-    return PointXYZZ(*cuda_ec.lane_fold(curve.F.spec, tuple(pts)))
+    fixed width; the result is lane 0 (one kernel launch on the card),
+    written into ``out`` (four (W,) views) when given."""
+    return PointXYZZ(*cuda_ec.lane_fold(curve.F.spec, tuple(pts), out))
 
 
 def _sweep_suffix(curve: SWCurve, gx, gy, ginf, d: PointXYZZ) -> PointXYZZ:
@@ -119,10 +122,11 @@ def _sweep_reduce(curve: SWCurve, pts: PointXYZZ, d: PointXYZZ) -> PointXYZZ:
     return PointXYZZ(*cuda_msm.reduce_sweep(curve.F.spec, rows, tuple(dc)))
 
 
-def _window_sum(curve: SWCurve, packed, dw, C, R, B, blind1, blind2) -> PointXYZZ:
+def _window_sum(curve: SWCurve, packed, dw, C, R, B, blind1, blind2, out=None) -> PointXYZZ:
     """One Pippenger window: sum_i dw_i * P_i via the sorted suffix-sum
     identity.  packed: (2W, R*C) words, x then y, all zero at infinity;
-    dw: (R*C,) int32 digits in [0, B)."""
+    dw: (R*C,) int32 digits in [0, B); out: four (W,) views to write the
+    sum into, or None."""
     d1, nd1 = blind1
     d2, nd2 = blind2
     W = packed.shape[0] // 2
@@ -154,7 +158,7 @@ def _window_sum(curve: SWCurve, packed, dw, C, R, B, blind1, blind2) -> PointXYZ
                      for t in tv))
     red = _sweep_reduce(curve, tv, d2)            # (W, C2), D2-biased lanes
     red = curve.add_xyzz(red, _bcast(nd2, (C2,)))  # unbias every lane
-    return _fold_reduce_lanes(curve, red)
+    return _fold_reduce_lanes(curve, red, out)
 
 
 def _tree_reduce(curve: SWCurve, pts: PointXYZZ, axis_len: int) -> PointXYZZ:
@@ -212,11 +216,11 @@ def msm(curve: SWCurve, points: AffinePoint, scalars: torch.Tensor,
         packed = torch.nn.functional.pad(packed, (0, n_pad - n))
         digits = torch.nn.functional.pad(digits, (0, n_pad - n))
 
-    acc = curve.infinity_xyzz(())
-    for k in range(digits.shape[0] - 1, -1, -1):  # MSB window first
-        win = _window_sum(curve, packed, digits[k].contiguous(), C, R, B,
-                          blind1, blind2)
-        for _ in range(c):  # Horner: acc = 2^c acc + win
-            acc = curve.dbl_xyzz(acc)
-        acc = curve.add_xyzz(acc, win)
-    return acc
+    # each window's sum goes into its column; then Horner over all of them
+    nwin = digits.shape[0]
+    wins = tuple(torch.empty((curve.F.W, nwin), dtype=torch.int32, device=packed.device)
+                 for _ in range(4))
+    for k in range(nwin - 1, -1, -1):  # MSB window first
+        _window_sum(curve, packed, digits[k].contiguous(), C, R, B, blind1, blind2,
+                    tuple(t[:, k] for t in wins))
+    return PointXYZZ(*cuda_ec.horner(curve.F.spec, wins, c))

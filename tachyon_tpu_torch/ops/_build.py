@@ -22,6 +22,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
@@ -43,7 +45,8 @@ LAUNCHERS = {
     "tt_reduce_partials": [_P] * 9 + [_I64] * 4 + [_P, ctypes.c_int, _P],
     "tt_reduce_combine": [_P] * 6 + [_I64] * 2 + [ctypes.c_int, _P, ctypes.c_int, _P],
     "tt_lane_suffix_scan": [_P] * 9 + [_I64, _P, ctypes.c_int, _P],
-    "tt_lane_fold": [_P] * 8 + [_I64, _P, ctypes.c_int, _P],
+    "tt_lane_fold": [_P] * 8 + [_I64, _I64, _P, ctypes.c_int, _P],
+    "tt_horner_xyzz": [_P] * 8 + [_I64, ctypes.c_int, _P, ctypes.c_int, _P],
 }
 
 # block sizes the wrappers read from the library (each returns an int)
@@ -125,11 +128,17 @@ def nvcc_log() -> str:
     return log.read_text() if log.exists() else ""
 
 
-def launch(name: str, *args) -> None:
-    """Call one launcher on PyTorch's current stream; raise on a CUDA error."""
-    import torch
+@functools.lru_cache(maxsize=None)
+def launcher(name: str):
+    """The library's launcher ``name``, looked up once."""
+    return getattr(library(), name)
 
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(library(), name)(*args, stream)
+
+def launch(name: str, *args) -> None:
+    """Call one launcher on PyTorch's current stream of the current device;
+    raise on a CUDA error.  The stream's handle comes from the getter that
+    Triton's launcher uses, without building a ``torch.cuda.Stream``."""
+    stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+    err = launcher(name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")

@@ -33,12 +33,12 @@ points it is bound by occupancy and launch latency.  The ladder keeps the
 point and its accumulator in registers for all 256 bits, so it moves ~230
 bytes per lane and is bound by its multiplies alone.  The designs evaluate
 the same formulas and case order as the TPU kernel, so results are
-bit-identical.  The standalone K3 and K4 stay: the MSM's Horner doublings
-launch K3, and ``SWCurve.madd_xyzz`` launches K4.
+bit-identical.  The standalone K3 and K4 stay behind ``SWCurve.dbl_xyzz``
+and ``SWCurve.madd_xyzz``; neither main path launches them.
 
 ``add_xyzz_plain`` / ``dbl_xyzz_plain`` / ``madd_xyzz_plain`` /
-``scalar_mul_plain`` / ``lane_suffix_scan_plain`` / ``lane_fold_plain``
-are the plain PyTorch twins (the CPU path, and the reference the kernels
+``scalar_mul_plain`` / ``lane_suffix_scan_plain`` / ``lane_fold_plain`` /
+``horner_plain`` are the plain PyTorch twins (the CPU path, and the reference the kernels
 are held against on the card); they mirror ``SWCurve._add_xyzz_jnp`` /
 ``_dbl_xyzz_jnp`` / ``_madd_xyzz_jnp`` / ``scalar_mul`` and the JAX
 package's ``_suffix_scan_lanes`` / ``_fold_reduce_lanes``.
@@ -301,21 +301,67 @@ def lane_suffix_scan(f: FieldSpec, u):
     return outs
 
 
-def lane_fold(f: FieldSpec, pts):
+def lane_fold(f: FieldSpec, pts, out=None):
     """The sum of a 4-tuple of (W, C) XYZZ coords over the lanes (C a power
-    of two), as 4 (W,) coords.  CPU tensors take ``lane_fold_plain``; CUDA
-    tensors launch the fold kernel (one block; C <= 512) or raise."""
+    of two), as 4 (W,) coords, written into ``out`` when given: four (W,)
+    tensors of one stride, such as column k of four (W, nwin) arrays.  CPU
+    tensors take ``lane_fold_plain``; CUDA tensors launch the fold kernel
+    (one block; C <= 512) or raise."""
     if pts[0].device.type == "cpu":
-        return lane_fold_plain(f, pts)
+        res = lane_fold_plain(f, pts)
+        if out is None:
+            return res
+        for o, t in zip(out, res):
+            o.copy_(t)
+        return tuple(out)
     W, C = _lanes_in(f, pts)
     if C & (C - 1) or not 1 <= C <= 512:
         raise ValueError(f"lane_fold takes a power of two up to 512 lanes, got {C}")
+    if out is None:
+        out = tuple(torch.empty((W,), dtype=t.dtype, device=t.device) for t in pts)
+    stride = out[0].stride(0)
+    for o in out:
+        if o.shape != (W,) or o.stride(0) != stride or o.dtype != torch.int32 \
+                or o.device != pts[0].device:
+            raise ValueError(f"out must be four int32 ({W},) tensors of one stride on "
+                             f"{pts[0].device}")
     if C == 1:
-        return tuple(t[:, 0].clone() for t in pts)
-    outs = tuple(torch.empty((W,), dtype=t.dtype, device=t.device) for t in pts)
-    _build.launch("tt_lane_fold", *(t.data_ptr() for t in pts), *(o.data_ptr() for o in outs),
-                  C, consts_ptr(f), W)
+        for o, t in zip(out, pts):
+            o.copy_(t[:, 0])
+        return tuple(out)
+    _build.launch("tt_lane_fold", *(t.data_ptr() for t in pts), *(o.data_ptr() for o in out),
+                  stride, C, consts_ptr(f), W)
     lane_fold.launches += 1
+    return tuple(out)
+
+
+def horner_plain(f: FieldSpec, wins, c: int):
+    """Plain twin of ``horner``: the loop of ``dbl_xyzz_plain`` and
+    ``add_xyzz_plain`` that the JAX package runs across windows."""
+    zero = torch.zeros_like(wins[0][:, 0])
+    acc = (zero, zero.clone(), zero.clone(), zero.clone())
+    for k in range(wins[0].shape[1] - 1, -1, -1):
+        for _ in range(c):
+            acc = dbl_xyzz_plain(f, acc)
+        acc = add_xyzz_plain(f, acc, tuple(t[:, k] for t in wins))
+    return acc
+
+
+def horner(f: FieldSpec, wins, c: int):
+    """sum_k 2^(c k) win[k] by Horner from infinity, MSB window first:
+    acc = 2^c acc + win[k] with c doublings and one complete add.  wins: a
+    4-tuple of (W, nwin) XYZZ coords, column k = window k; returns 4 (W,)
+    coords.  CPU tensors take ``horner_plain``; CUDA tensors launch the
+    Horner kernel (one launch, one thread) or raise."""
+    if wins[0].device.type == "cpu":
+        return horner_plain(f, wins, c)
+    W, nwin = _lanes_in(f, wins)
+    if nwin < 1 or c < 0:
+        raise ValueError(f"horner takes at least one window and c >= 0, got {nwin}, {c}")
+    outs = tuple(torch.empty((W,), dtype=t.dtype, device=t.device) for t in wins)
+    _build.launch("tt_horner_xyzz", *(t.data_ptr() for t in wins), *(o.data_ptr() for o in outs),
+                  nwin, c, consts_ptr(f), W)
+    horner.launches += 1
     return outs
 
 
@@ -325,3 +371,4 @@ madd_xyzz.launches = 0
 scalar_mul.launches = 0
 lane_suffix_scan.launches = 0
 lane_fold.launches = 0
+horner.launches = 0

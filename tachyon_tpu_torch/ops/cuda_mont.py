@@ -7,11 +7,16 @@ canonical, over a flat batch of field elements.
 Kernel (``csrc/mont_mul.cu``, ``csrc/field.cuh``): one thread per element,
 word-major ``(W, n)`` layout so that the threads of a warp load neighbouring
 words.  W-word CIOS with 32-bit words (8 rounds for BN254 instead of the
-TPU's 16 rounds of 16-bit limbs, since Hopper has a widening 32x32->64
-multiply and the TPU's VPU does not).  Bound on the card: at 2^22 elements
-it moves 96 bytes per element against ~140 integer multiply-adds, so it
-sits near the memory roofline; on the MSM path it runs on one or two
-elements (``to_affine``) and is launch-bound there.
+TPU's 16 rounds of 16-bit limbs).  Where p has a spare bit (p < 2^(32 W -
+1), BN254's Fq and Fr) the rounds are PTX multiply-add chains in sppark's
+even/odd layout; a full-width p (secp256k1) takes 64-bit CIOS products.
+The launcher picks the form from p's top word; the point kernels use the
+spare-bit form only, so ``check_cuda`` refuses them other fields.  Bound
+on the card: at 2^22 elements it moves 96 bytes per element against 136
+word products, so it sits near the memory roofline; on the MSM path it
+runs on one or two elements (``to_affine``) and, on the KZG path, on
+thousands of small batches: there the wrapper's host time per call is the
+cost, so the wrapper does no work that fitting inputs do not need.
 
 ``mul_plain`` is the plain PyTorch twin: the CPU path and the reference the
 kernel is held against on the card.
@@ -39,18 +44,27 @@ def field_consts(f: FieldSpec):
     return (ctypes.c_uint32 * len(vals))(*(int(v) for v in vals))
 
 
+@functools.lru_cache(maxsize=None)
 def consts_ptr(f: FieldSpec) -> int:
     return ctypes.addressof(field_consts(f))
 
 
-def check_cuda(f: FieldSpec, *ts: torch.Tensor) -> int:
-    """Check the kernels can take these tensors; returns W."""
+def has_spare_bit(f: FieldSpec) -> bool:
+    """p < 2^(32 W - 1): the condition of the kernels' even/odd multiply."""
+    return f.p >> (32 * word_count(f) - 1) == 0
+
+
+def check_cuda(f: FieldSpec, *ts: torch.Tensor, any_width: bool = False) -> int:
+    """Check the kernels can take these tensors; returns W.  Only K1 takes a
+    full-width p (``any_width``); the point kernels need a spare bit."""
     W = word_count(f)
     if W not in SUPPORTED_W:
         raise ValueError(f"{f.name}: no CUDA kernel for W={W} (have {SUPPORTED_W})")
-    dev = ts[0].device
+    if not any_width and not has_spare_bit(f):
+        raise ValueError(f"{f.name}: the point kernels need p < 2^{32 * W - 1}")
+    dev = ts[0].get_device()
     for t in ts:
-        if t.device != dev or t.device.type != "cuda":
+        if not t.is_cuda or t.get_device() != dev:
             raise ValueError(f"tensors must share one CUDA device, got {t.device}")
         if t.dtype != torch.int32:
             raise TypeError(f"expected int32 words, got {t.dtype}")
@@ -96,11 +110,12 @@ def mul_plain(f: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def mul(f: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Montgomery product of (W, *batch) int32 words.  CPU tensors take
     ``mul_plain``; CUDA tensors launch K1 or raise."""
-    a, b = torch.broadcast_tensors(a, b)
-    if a.device.type == "cpu":
+    if a.shape != b.shape:
+        a, b = torch.broadcast_tensors(a, b)
+    if a.is_cpu:
         return mul_plain(f, a, b)
     a, b = a.contiguous(), b.contiguous()
-    W = check_cuda(f, a, b)
+    W = check_cuda(f, a, b, any_width=True)
     n = a.numel() // W
     out = torch.empty_like(a)
     if n:

@@ -82,6 +82,22 @@ def test_elementwise_vs_jax(f, op):
     assert_same(want, got)
 
 
+@pytest.mark.parametrize("f", FIELDS + [presets.SECP256K1_FQ], ids=lambda f: f.name)
+def test_mul_edge_operands_vs_jax(f):
+    """K1's edge operands as the words a kernel sees: 0, 1, mont(1) = R mod
+    p, 2 and p - 1, every pair (so (p - 1)^2 too); secp256k1's p is full
+    width (the kernels' 64-bit CIOS form of the multiply)."""
+    vals = [0, 1, f.R_mod_p, 2, f.p - 1]
+    xs, ys = [x for x in vals for _ in vals], [y for _ in vals for y in vals]
+    ja, jb = (jnp.asarray(np.stack([int_to_limbs(v, f.L) for v in vs], axis=-1))
+              for vs in (xs, ys))
+    got = mont.mul(f, limbs.from_jax_limbs(np.asarray(ja)), limbs.from_jax_limbs(np.asarray(jb)))
+    assert_same(jmont._mul_jnp(f, ja, jb), got)
+    r_inv = pow(1 << (32 * f.L // 2), -1, f.p)
+    assert limbs.words_to_ints(got.numpy().view(np.uint32)) == [
+        x * y * r_inv % f.p for x, y in zip(xs, ys)]
+
+
 @pytest.mark.parametrize("f", FIELDS, ids=lambda f: f.name)
 def test_mul_plain_is_the_cpu_path(f):
     """The CPU path of the K1 wrapper is its plain twin, and no launch counts."""
@@ -147,6 +163,10 @@ def test_point_repack_and_input_checks():
         cuda_mont.check_cuda(f, aff.x)
     with pytest.raises(ValueError):
         cuda_mont.check_cuda(presets.BLS12_381_FQ, aff.x)
+    # and the point kernels only fields with a spare bit (K1 takes any p)
+    assert cuda_mont.has_spare_bit(f) and not cuda_mont.has_spare_bit(presets.SECP256K1_FQ)
+    with pytest.raises(ValueError, match="point kernels"):
+        cuda_mont.check_cuda(presets.SECP256K1_FQ, aff.x)
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
