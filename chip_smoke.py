@@ -9,8 +9,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build: compiles the CUDA kernels from tachyon_tpu_torch/csrc (one nvcc
    per source, all started together);
 3. kernels: each of K1-K6, the fused scalar_mul ladder, the lane scan
-   and fold and the Horner kernel against its plain PyTorch twin on the
-   card, bit-exact on the words, both timed with CUDA events, beside its
+   and fold, the Horner kernel and the bucket kernel against its plain
+   PyTorch twin on the card, bit-exact on the words, both timed with CUDA
+   events, beside its
    bound: the larger of its bytes over 3.35 TB/s and its 32x32-bit word
    products (136 a field multiply, whatever the multiply compiles to) over
    64 per clock per SM x 132 SMs x the card's max SM clock, and the field
@@ -25,18 +26,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    sequential twin at both main paths' shapes, with each launch's time and
    the chain combine's, and timed by segment count at three layouts.  The
    lane scan (C = 4096, 512) and fold (512) are also held against, and
-   timed beside, the loop of K2 launches they replace, and the Horner
-   kernel (15 windows, c = 17, with an infinite window and adds that double
-   and cancel) against the loop of K3 and K2 launches it replaces;
+   timed beside, the loop of K2 launches they replace, and with the blind
+   as their bias against the unbiased kernel between the two K2 launches
+   the bias replaces; the Horner kernel (15 windows, c = 17, with an
+   infinite window and adds that double and cancel) against the loop of
+   K3 and K2 launches it replaces; the bucket kernel at the 2^22 window's
+   shapes (T (1024, 8, 4096), 2^17 buckets into (256, 8, 512) rows, with
+   absent digits and adds that double, cancel and take infinity) against
+   its twin and the gathers, K2 launch and glue it replaces, with the 32-byte
+   sectors its T loads touch; K2 at its remaining shape (the naive MSM's
+   tree reduce, 32 lanes) and at 2^17 - 1 lanes;
 4. MSM: the BN254 G1 MSM at n = 2^22 (msm + to_affine) on the point set of
    bench.py (256 exact multiples of G, seed 42, tiled; 254-bit scalars),
    checked against the host-exact point, timed MSM_RUNS times, with the
-   kernels' launch counts (K2: K2_PER_WINDOW a window; one Horner launch,
-   no K3);
+   kernels' launch counts (K2 K2_PER_WINDOW = 0 times a window, the bucket
+   kernel once; one Horner launch, no K3);
 5. KZG: the BN254 KZG path at n = 2^20 (unsafe setup, commit,
    commit_lagrange, open, verify; a 64-coefficient commit on the naive MSM
    path; Pedersen setup(64) + commit), each step checked against host ints,
-   with its time and the kernels' launch counts;
+   with its time and the kernels' launch counts (K2 only in the naive
+   MSMs' tree reduces and Pedersen's last add);
 6. prints the card's line, the kernels' JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", ...}} last.
 
@@ -75,7 +84,9 @@ SEED = 42
 SIZES = {
     "k1_fq": 1 << 22,       # K1 elements, BN254 Fq
     "k1_fr": 1 << 16,       # K1 elements, BN254 Fr
-    "k2": (1 << 17) - 1,    # K2 lanes: the T-gather width 2^c - 1
+    # K2 lanes: the widest add of the naive MSM's tree reduce (64 points),
+    # then the former T-gather width 2^c - 1
+    "k2": (32, (1 << 17) - 1),
     "k3": 4096,             # K3 lanes (the standalone double; no main path launches it)
     "horner": (15, 17),     # Horner's windows and c at 2^22 (c = 17)
     "k4": 1 << 20,          # K4 lanes
@@ -89,6 +100,7 @@ SIZES = {
     "k6_sweep": ((16, 512), (64, 512), (256, 512)),
     "scan": (4096, 512),    # lane scan widths: C for n >= 2^15 (both paths), and below
     "fold": 512,            # lane fold width C2
+    "bucket": (1 << 17, 512),  # the bucket kernel's B = 2^c and C2, on K5's (R, C)
 }
 K5_SMALL_S = (1, 2, 4, 8)  # segment counts timed beside the one K5 picks there
 K6_S = (1, 2, 4, 8, 16, 32, 64)  # K6 segment counts timed (64 at R = 256 only)
@@ -125,15 +137,20 @@ KERNELS = {
                   "tachyon_tpu/ops/pallas_ec.py:209"),
     "horner": (cuda_ec.horner, "tachyon_tpu_torch/csrc/horner.cu",
                "tachyon_tpu/ops/pallas_ec.py:232"),
+    "bucket_add": (cuda_msm.bucket_add, "tachyon_tpu_torch/csrc/buckets.cu",
+                   "tachyon_tpu/ops/pallas_ec.py:209"),
 }
 
 # what the fused ladder replaces beside K4: K3 and the scan's select per
 # bit; what the lane kernels replace beside K2: the JAX loops over it; what
-# the Horner kernel replaces beside K3: K2's add and the JAX loop
-ALSO_REPLACES = {"scalar_mul_xyzz": ["tachyon_tpu/ops/pallas_ec.py:232",
+# the Horner kernel replaces beside K3: K2's add and the JAX loop; what the
+# bucket kernel replaces beside K2: the T-gather's XLA glue
+ALSO_REPLACES = {"bucket_add": ["tachyon_tpu/math/msm.py:348-361"],
+                 "scalar_mul_xyzz": ["tachyon_tpu/ops/pallas_ec.py:232",
                                      "tachyon_tpu/math/ec.py:313-338"],
-                 "lane_suffix_scan": ["tachyon_tpu/math/msm.py:196-206"],
-                 "lane_fold": ["tachyon_tpu/math/msm.py:209-222"],
+                 "lane_suffix_scan": ["tachyon_tpu/math/msm.py:196-206",
+                                      "tachyon_tpu/math/msm.py:340-344"],
+                 "lane_fold": ["tachyon_tpu/math/msm.py:209-222", "tachyon_tpu/math/msm.py:363"],
                  "horner": ["tachyon_tpu/ops/pallas_ec.py:209", "tachyon_tpu/math/msm.py:418-428"]}
 # K5 at (1024, 8, 4096) and K6 at (256, 8, 512) with one thread per lane,
 # before the segments (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md)
@@ -476,19 +493,22 @@ def phase_kernels(device, base_x, base_y, clock_hz, results):
 
     k1_check(fq, fr, g, device, clock_hz, results)
 
-    # K2 on the T-gather width at c = 17: 2^17 - 1 lanes, with P = Q, P = -Q
-    # and infinity lanes
-    n = SIZES["k2"]
-    p, q, muls = k2_inputs(fq, base_x, base_y, n)
-    lane = torch.arange(n, device=device)
-    zero = torch.zeros_like(p[0])
-    got = cuda_ec.add_xyzz(fq, p, q)
-    want = cuda_ec.add_xyzz_plain(fq, p, q)
-    if not bool(mont.is_zero(fq, got[2])[lane % 7 == 2].all()):
-        raise AssertionError("add_xyzz: P + (-P) is not infinity")
-    check("add_xyzz", got, want, cuda_ms(lambda: cuda_ec.add_xyzz(fq, p, q), 20),
-          cuda_ms(lambda: cuda_ec.add_xyzz_plain(fq, p, q), 2), f"4 x (8, {n})",
-          f"4 x (8, {n})", (12 * 32 * n, WORD_PRODUCTS * muls, clock_hz), results)
+    # K2 at its remaining main-path width (the naive MSM's first tree level,
+    # recorded), then at the former T-gather width at c = 17, 2^17 - 1
+    # lanes; with P = Q, P = -Q and infinity lanes
+    for n in SIZES["k2"]:
+        p, q, muls = k2_inputs(fq, base_x, base_y, n)
+        lane = torch.arange(n, device=device)
+        zero = torch.zeros_like(p[0])
+        got = cuda_ec.add_xyzz(fq, p, q)
+        want = cuda_ec.add_xyzz_plain(fq, p, q)
+        if not bool(mont.is_zero(fq, got[2])[lane % 7 == 2].all()):
+            raise AssertionError("add_xyzz: P + (-P) is not infinity")
+        ms = cuda_ms(lambda: cuda_ec.add_xyzz(fq, p, q), 20)
+        results.setdefault("add_xyzz_by_width", {})[str(n)] = ms
+        check("add_xyzz", got, want, ms,
+              cuda_ms(lambda: cuda_ec.add_xyzz_plain(fq, p, q), 2), f"4 x (8, {n})",
+              f"4 x (8, {n})", (12 * 32 * n, WORD_PRODUCTS * muls, clock_hz), results)
 
     # K3 on 4096 lanes, with infinity lanes (the standalone double; Horner's
     # doublings run in the Horner kernel, below)
@@ -628,9 +648,11 @@ def phase_kernels(device, base_x, base_y, clock_hz, results):
     # rows cut from the suffix sums; then the lane scan and fold over lanes
     # cut from them
     k6_check(fq, suf, d2, g, clock_hz, results)
+    (_, nd1), (_, nd2) = _blind_points(curve)
     for C in SIZES["scan"]:
-        lane_check(fq, "lane_suffix_scan", suf, C, g, clock_hz, results)
-    lane_check(fq, "lane_fold", suf, SIZES["fold"], g, clock_hz, results)
+        lane_check(fq, "lane_suffix_scan", suf, C, tuple(nd1), g, clock_hz, results)
+    lane_check(fq, "lane_fold", suf, SIZES["fold"], tuple(nd2), g, clock_hz, results)
+    bucket_check(fq, suf, g, clock_hz, results)
 
 
 def k6_rows(suf, R: int, C: int, L: int, g):
@@ -792,30 +814,175 @@ def lane_adds(name: str, fin: torch.Tensor) -> tuple[int, int]:
     return need, sched
 
 
-def lane_check(f, name: str, suf, C: int, g, clock_hz, results) -> None:
-    """The lane scan or fold on C lanes against its plain twin, word for
-    word, and against the loop of K2 launches it replaces; timed beside
-    that loop."""
+def biased_k2_path(f, name: str, u, bias):
+    """The lane scan or fold with a bias as K2 launches around the unbiased
+    kernel, the path the bias replaces: K2 over the bias broadcast on the
+    lanes (u + bias, then for the scan + bias again)."""
+    bc = tuple(_bcast(PointXYZZ(*bias), (u[0].shape[-1],)))
+    if name == "lane_fold":
+        return cuda_ec.lane_fold(f, cuda_ec.add_xyzz(f, u, bc))
+    return cuda_ec.add_xyzz(f, cuda_ec.lane_suffix_scan(f, cuda_ec.add_xyzz(f, u, bc)), bc)
+
+
+def lane_check(f, name: str, suf, C: int, bias, g, clock_hz, results) -> None:
+    """The lane scan or fold on C lanes with the blind as its bias (the
+    main path's call, recorded), word for word against its plain twin and
+    the unbiased kernel between K2 launches, timed beside them;
+    then without a bias against its twin and the loop of K2 launches it
+    replaces, timed beside that loop."""
     wrapper, _, _ = KERNELS[name]
     twin = cuda_ec.lane_suffix_scan_plain if name == "lane_suffix_scan" else cuda_ec.lane_fold_plain
     eq, neg = ((10, 11), (20, 21)) if name == "lane_suffix_scan" else ((7, 7 + C // 2),
                                                                         (9, 9 + C // 2))
     u = lane_inputs(f, suf, C, g, eq, neg)
-    got = wrapper(f, u)
+    out_pts = C if name == "lane_suffix_scan" else 1
+    fin = ~mont.is_zero(f, u[2])
+    adds, sched = lane_adds(name, fin)
+    # with the bias: an add in on every finite lane, then every lane is
+    # finite, and for the scan an add out on every lane but the last
+    # (whose sum is infinity)
+    biased_adds = int(fin.sum()) + lane_adds(name, torch.ones_like(fin))[0] + (
+        C - 1 if name == "lane_suffix_scan" else 0)
+    work = (4 * 32 * (C + out_pts + 1), WORD_PRODUCTS * 14 * biased_adds, clock_hz)
+
+    def call(b=None):
+        return wrapper(f, u, bias=b)
+
+    got = call(bias)
+    if word_err(got, biased_k2_path(f, name, u, bias)) != 0:
+        raise AssertionError(f"{name} at C = {C} with a bias: words differ from the unbiased "
+                             f"kernel between K2 launches")
+    want, plain_ms = timed_once(lambda: twin(f, u, bias))
+    k2_path_ms = cuda_ms(lambda: biased_k2_path(f, name, u, bias), 20)
+    ms = cuda_ms(lambda: call(bias), 20)
+    log(f"[lanes] {name} C={C} with a bias: one launch {ms:.4f} ms, the unbiased kernel "
+        f"between K2 launches {k2_path_ms:.4f} ms")
+    results.setdefault(f"{name}_k2_path_ms", k2_path_ms)
+    check(name, got, want, ms, plain_ms, f"4 x (8, {C}) + bias 4 x (8,)",
+          f"4 x (8, {C}) + bias 4 x (8,)", work, results)
+
+    got = call()
     want = twin(f, u)
     if word_err(got, k2_steps(f, name, u)) != 0:
         raise AssertionError(f"{name} at C = {C}: words differ from the K2 loop it replaces")
     steps_ms = cuda_ms(lambda: k2_steps(f, name, u), 20)
-    out_pts = C if name == "lane_suffix_scan" else 1
-    adds, sched = lane_adds(name, ~mont.is_zero(f, u[2]))
     work = (4 * 32 * (C + out_pts), WORD_PRODUCTS * 14 * adds, clock_hz)
-    ms = cuda_ms(lambda: wrapper(f, u), 20)
+    ms = cuda_ms(call, 20)
     log(f"[lanes] {name} C={C}: one launch {ms:.4f} ms, the loop of K2 launches and shifts it "
         f"replaces {steps_ms:.4f} ms; {adds} adds of finite points needed, {sched} made in "
         f"its order (bound at those: {bound_ms(work[0], WORD_PRODUCTS * 14 * sched, clock_hz)[0]:.4f} ms)")
     results.setdefault(f"{name}_before_ms", steps_ms)
     results.setdefault(f"{name}_schedule_adds", sched)
     check(name, got, want, ms, cuda_ms(lambda: twin(f, u), 2), f"4 x (8, {C})", f"4 x (8, {C})",
+          work, results)
+
+
+def add_muls(f, p, q) -> tuple[int, dict]:
+    """The field multiplies the complete adds p + q need, lane by lane: 14
+    for two finite points, 13 where P = Q (4 to find it, 9 to double), 4
+    where P = -Q, none where an input is infinity; and the lanes of each
+    case."""
+    u1, u2, s1, s2 = (mont.mul(f, a, b) for a, b in ((p[0], q[2]), (q[0], p[2]),
+                                                     (p[1], q[3]), (q[1], p[3])))
+    same_x, same_y = mont.eq(f, u1, u2), mont.eq(f, s1, s2)
+    inf = mont.is_zero(f, p[2]) | mont.is_zero(f, q[2])
+    cases = {"infinity_in": int(inf.sum()), "doubles": int((~inf & same_x & same_y).sum()),
+             "cancels": int((~inf & same_x & ~same_y).sum())}
+    cases["generic"] = int((~inf & ~same_x).sum())
+    return 14 * cases["generic"] + 13 * cases["doubles"] + 4 * cases["cancels"], cases
+
+
+def bucket_inputs(f, suf, g):
+    """The bucket kernel's inputs at the 2^22 window's shapes: T, a copy of
+    K5's suffix sums (R, W, C); W'' from row 5's lanes; pos, the bucket
+    starts of R C sorted digits below B - 64 (the top 63 digits absent:
+    pos = R C).  At the first bucket of lane c (row r), by c % 64: 1
+    W''[c] = T[r, c] (P = Q), 2 W''[c] = -T[r, c] (P = -Q), 3 W''[c] at
+    infinity (every bucket of the lane), 4 T[r, c] at infinity, 5 both."""
+    B, _ = SIZES["bucket"]
+    R, W, C = suf[0].shape
+    t = tuple(x.clone() for x in suf)
+    wpp = [x[5].clone() for x in suf]
+    digits = torch.randint(0, B - 64, (R * C,), generator=g, device=suf[0].device,
+                           dtype=torch.int32)
+    bq = torch.arange(1, B, dtype=torch.int32, device=digits.device)
+    pos = torch.searchsorted(torch.sort(digits).values, bq, out_int32=True)
+    k = pos[pos < R * C].long()
+    new_lane = torch.ones_like(k, dtype=torch.bool)
+    new_lane[1:] = k[1:] // R != k[:-1] // R
+    r, c = k[new_lane] % R, k[new_lane] // R
+    m = [c % 64 == j for j in range(6)]
+    for i in range(4):
+        wpp[i][:, c[m[1]]] = t[i][r[m[1]], :, c[m[1]]].t()
+        opp = t[i][r[m[2]], :, c[m[2]]].t()
+        wpp[i][:, c[m[2]]] = mont.neg(f, opp) if i == 1 else opp
+        wpp[i][:, c[m[3] | m[5]]] = 0
+        t[i][r[m[4] | m[5]], :, c[m[4] | m[5]]] = 0
+    return t, tuple(wpp), pos
+
+
+def bucket_k2_path(f, t, wpp, pos, C2: int):
+    """The T-gather add as the bucket kernel's launch replaces it on the
+    card: index gathers on the permuted (W, R, C) view of K5's output, a K2
+    launch, where, pad, reshape, then the permute into K6's rows."""
+    R, W, C = t[0].shape
+    valid = pos < R * C
+    posc = torch.where(valid, pos, 0)
+    tg = tuple(x.permute(1, 0, 2)[:, posc % R, posc // R] for x in t)
+    wg = tuple(x[:, posc // R] for x in wpp)
+    tv = cuda_ec.add_xyzz(f, tg, wg)
+    tv = tuple(torch.where(valid[None], x, 0) for x in tv)
+    B = pos.shape[0] + 1
+    return tuple(torch.nn.functional.pad(x, (0, 1)).reshape(W, B // C2, C2)
+                 .permute(1, 0, 2).contiguous() for x in tv)
+
+
+def bucket_check(f, suf, g, clock_hz, results) -> None:
+    """The bucket kernel at the 2^22 window's shapes, word for word against
+    its plain twin and the gathers, K2 launch and glue it replaces, timed beside
+    them; its bound, and the 32-byte sectors its loads touch beside the
+    bytes the function needs."""
+    B, C2 = SIZES["bucket"]
+    R, W, C = suf[0].shape
+    t, wpp, pos = bucket_inputs(f, suf, g)
+    got = cuda_msm.bucket_add(f, t, wpp, pos, C2)
+    want, plain_ms = timed_once(lambda: cuda_msm.bucket_add_plain(f, t, wpp, pos, C2))
+    if word_err(got, bucket_k2_path(f, t, wpp, pos, C2)) != 0:
+        raise AssertionError("bucket_add: words differ from the gathers and K2 it replaces")
+    valid = pos < R * C
+    k = pos[valid].long()
+    r, c = k % R, k // R
+    muls, cases = add_muls(f, tuple(x[r, :, c].t() for x in t), tuple(x[:, c] for x in wpp))
+    if min(cases.values()) == 0 or int((~valid).sum()) < 63:
+        raise AssertionError(f"bucket_add: the inputs miss a case: {cases}, "
+                             f"{int((~valid).sum())} absent digits")
+    zz = got[2].permute(1, 0, 2).reshape(W, B)
+    absent = torch.cat([~valid, torch.ones(1, dtype=torch.bool, device=valid.device)])
+    if not bool((zz[:, absent] == 0).all()):
+        raise AssertionError("bucket_add: an absent digit or the pad bucket is not infinity")
+    # bytes: pos, the T points and W'' lanes the buckets read, the rows out
+    t_pts = int(torch.unique(k).numel())
+    lanes = int(torch.unique(c).numel())
+    nbytes = 4 * (B - 1) + 4 * 32 * (t_pts + lanes) + 4 * 32 * B
+    # the 32-byte sectors of the loads: word i of T[r, :, c] is element
+    # (r W + i) C + c of a coordinate, 8 to a sector
+    words = (r * W)[None] * C + torch.arange(W, device=k.device)[:, None] * C + c[None]
+    sectors = {"t": 4 * int(torch.unique(words // 8).numel()),
+               "wpp": 4 * int(torch.unique((torch.arange(W, device=k.device)[:, None] * C
+                                            + c[None]) // 8).numel()),
+               "pos": -(-4 * (B - 1) // 32), "out": 4 * 32 * B // 32}
+    ms = cuda_ms(lambda: cuda_msm.bucket_add(f, t, wpp, pos, C2), 20)
+    k2_path_ms = cuda_ms(lambda: bucket_k2_path(f, t, wpp, pos, C2), 20)
+    work = (nbytes, WORD_PRODUCTS * muls, clock_hz)
+    log(f"[bucket] B={B} buckets from T ({R}, {W}, {C}) into ({B // C2}, {W}, {C2}) rows: one "
+        f"launch {ms:.4f} ms, the gathers, K2 and glue it replaces {k2_path_ms:.4f} ms; cases "
+        f"{cases}, {int((~valid).sum())} absent digits; {nbytes} bytes needed, the loads touch "
+        f"{sectors} 32-byte sectors ({32 * sum(sectors.values())} bytes)")
+    results["bucket_add_info"] = {"k2_path_ms": k2_path_ms, "cases": cases, "sectors": sectors,
+                                  "sector_bytes": 32 * sum(sectors.values())}
+    check("bucket_add", got, want, ms, plain_ms,
+          f"4 x ({R}, {W}, {C}) + 4 x ({W}, {C}) + ({B - 1},) -> 4 x ({B // C2}, {W}, {C2})",
+          f"4 x ({R}, {W}, {C}) + 4 x ({W}, {C}) + ({B - 1},) -> 4 x ({B // C2}, {W}, {C2})",
           work, results)
 
 
@@ -831,13 +998,18 @@ def slice_inputs(curve, n: int):
     return points, limbs.from_jax_limbs(sc, curve.device), ks, sc
 
 
-MSM_PATH = ("mont_mul", "add_xyzz", "horner", "suffix_sweep", "reduce_sweep",
+MSM_PATH = ("mont_mul", "bucket_add", "horner", "suffix_sweep", "reduce_sweep",
             "lane_suffix_scan", "lane_fold")
-K2_PER_WINDOW = 4  # u, W - D, the T-gather add, the unbias
+# the window's blind adds run in the lane kernels, its T-gather add in the
+# bucket kernel (once a window)
+K2_PER_WINDOW = 0
 # madd_xyzz and dbl_xyzz are on neither path: scalar_mul is one ladder
-# launch, Horner's doublings run in the Horner kernel
-KZG_PATH = ("scalar_mul_xyzz",) + MSM_PATH
+# launch, Horner's doublings run in the Horner kernel.  K2 stays on the KZG
+# path in the naive MSMs' tree reduces (64 points: 6 levels, in the commit
+# of 64 coefficients and Pedersen's commit) and Pedersen's last add.
+KZG_PATH = ("scalar_mul_xyzz", "add_xyzz") + MSM_PATH
 KZG_SWEEP_MSMS = 3  # commit, commit_lagrange, open_at; the 64-point MSMs are naive
+KZG_K2 = 2 * 6 + 1
 
 
 def reset_launches() -> None:
@@ -890,9 +1062,10 @@ def phase_slice(device):
 
     c = optimal_window_bits(SF.spec.bits, n)
     nwin = -(-SF.spec.bits // c)
-    if launches["add_xyzz"] != K2_PER_WINDOW * nwin:
-        raise AssertionError(f"K2 launched {launches['add_xyzz']} times on {nwin} windows, "
-                             f"not {K2_PER_WINDOW} a window")
+    if launches["add_xyzz"] != K2_PER_WINDOW * nwin or launches["bucket_add"] != nwin:
+        raise AssertionError(f"K2 launched {launches['add_xyzz']} times and the bucket kernel "
+                             f"{launches['bucket_add']} times on {nwin} windows, not "
+                             f"{K2_PER_WINDOW} and 1 a window")
     if launches["horner"] != 1 or launches["dbl_xyzz"] != 0:
         raise AssertionError(f"one MSM launched Horner {launches['horner']} times and K3 "
                              f"{launches['dbl_xyzz']} times, not 1 and 0")
@@ -981,6 +1154,10 @@ def phase_kzg(device):
     if launches["horner"] != KZG_SWEEP_MSMS or launches["dbl_xyzz"] != 0:
         raise AssertionError(f"the KZG path launched Horner {launches['horner']} times and K3 "
                              f"{launches['dbl_xyzz']} times, not {KZG_SWEEP_MSMS} and 0")
+    if launches["add_xyzz"] != KZG_K2 or launches["bucket_add"] != launches["lane_fold"]:
+        raise AssertionError(f"the KZG path launched K2 {launches['add_xyzz']} times (not "
+                             f"{KZG_K2}) and the bucket kernel {launches['bucket_add']} times on "
+                             f"{launches['lane_fold']} windows")
 
     t0 = time.perf_counter()
     ok = kzg.verify(params, c_commit, z, proof)
@@ -1023,6 +1200,21 @@ def phase_kzg(device):
         f"verify_s={verify_s:.3f} host_checks_s={host_s:.3f} peak_mem_bytes={peak} "
         f"steps={json.dumps(steps)} launches={json.dumps(launches)}")
     return launches
+
+
+def ptxas_registers(nvcc_log: str) -> dict:
+    """Registers and spill-store bytes of each kernel from ptxas's -v
+    lines, by the kernel's unmangled name."""
+    regs, name = {}, None
+    for line in nvcc_log.splitlines():
+        if m := re.search(r"Compiling entry function '_Z(\d+)(\w+)'", line):
+            name = m.group(2)[:int(m.group(1))]
+            regs[name] = {"registers": None, "spill_stores": 0}
+        elif name and (m := re.search(r"(\d+) bytes spill stores", line)):
+            regs[name]["spill_stores"] = int(m.group(1))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            regs[name]["registers"] = int(m.group(1))
+    return regs
 
 
 SASS_OP = re.compile(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
@@ -1081,6 +1273,9 @@ def main() -> int:
     for line in _build.nvcc_log().splitlines():
         if "entry function" in line or "registers" in line or "spill" in line:
             log(f"[ptxas] {line.strip()}")
+    regs = ptxas_registers(_build.nvcc_log())
+    for fn, r in regs.items():
+        log(f"[regs] {fn}: {r['registers']} registers, {r['spill_stores']} bytes of spill stores")
     sass = sass_opcodes()
     for fn, ops in sass.items():
         wide = sum(n for op, n in ops.items() if op.startswith("IMAD.WIDE"))
@@ -1127,6 +1322,14 @@ def main() -> int:
         if name == "horner":
             entry["k3_k2_loop_ms"] = results["horner_loop_ms"]
             entry["chain"] = results["horner_chain"]
+        if name == "add_xyzz":
+            entry["ms_by_width"] = results["add_xyzz_by_width"]
+            entry["registers"] = regs.get("add_xyzz_kernel")
+        if name == "bucket_add":
+            entry.update(results["bucket_add_info"])
+            entry["registers"] = regs.get("bucket_add_kernel")
+        if f"{name}_k2_path_ms" in results:
+            entry["k2_path_ms"] = results[f"{name}_k2_path_ms"]
         if f"{name}_before_ms" in results:
             entry["k2_loop_ms"] = results[f"{name}_before_ms"]
             entry["schedule_adds"] = results[f"{name}_schedule_adds"]

@@ -15,9 +15,11 @@
 
 // K2 asks ptxas for ADD_MIN_BLOCKS blocks of 128 per SM, a register cap:
 // 128 registers (84 bytes of spills), where it takes 172 with no bounds and
-// 196 at one block.  At the MSM's T-gather width, 4 x (8, 131071), it ran
-// 13-20% faster in turns on the H100 than with no bounds or at one block,
-// and faster than at 3 or 5 blocks (PERF.md).
+// 196 at one block.  At the MSM's former T-gather width, 4 x (8, 131071), it
+// ran 13-20% faster in turns on the H100 than with no bounds or at one
+// block, and faster than at 3 or 5 blocks (PERF.md).  The MSM window no
+// longer launches K2 (csrc/buckets.cu and csrc/lanes.cu take its adds); the
+// naive MSM's tree reduce and Pedersen's last add do, on 1 to 32 points.
 constexpr int ADD_MIN_BLOCKS = 4;
 
 template <int W>

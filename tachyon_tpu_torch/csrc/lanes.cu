@@ -30,6 +30,16 @@
 // shared memory (32 KB at C = 512), with the same pairs in the same order.
 // The sum's W words go out ostride apart, so the MSM writes each window's
 // sum straight into column k of the (W, nwin) array that Horner reads.
+//
+// Both take an optional bias point nd (one point, null pointers for none),
+// the MSM window's blind adds of tachyon_tpu/math/msm.py:340-344 and :363,
+// each a K2 launch over the lanes before: the scan runs on u[c] + nd and
+// writes wk[c] + nd, the fold adds nd to every lane at its first load.  In
+// the scan each thread adds nd to its own lane into the scratch buffer the
+// first step reads, behind one more grid barrier, so the u values cost one
+// add of latency, not two (on the H100, 0.119 against 0.126 ms at C = 4096
+// for each thread adding nd to both lanes it reads; PERF.md); nd is the
+// second operand, as in JAX.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -54,16 +64,52 @@ __device__ __forceinline__ void lanes_store(uint32_t* base, int64_t C, int64_t c
   xyzz_store<W>(base, base + W * C, base + 2 * W * C, base + 3 * W * C, C, c, p);
 }
 
-// u and out: 4 x (W, C); buf: (2, 4, W, C) scratch.
+// The bias point nd, or false when its pointers are null (one (W,) array a
+// coordinate).
+template <int W>
+__device__ __forceinline__ bool bias_load(Xyzz<W>& nd, const uint32_t* bx, const uint32_t* by,
+                                          const uint32_t* bzz, const uint32_t* bzzz) {
+  if (bx == nullptr) return false;
+  xyzz_load<W>(nd, bx, by, bzz, bzzz, 1, 0);
+  return true;
+}
+
+// Lane k of a 4 x (W, C) input, plus nd when biased (the fold's loads).
+template <int W>
+__device__ __forceinline__ void lane_in(Xyzz<W>& a, const uint32_t* x, const uint32_t* y,
+                                        const uint32_t* zz, const uint32_t* zzz, int64_t C,
+                                        int64_t k, bool biased, const Xyzz<W>& nd,
+                                        const FieldConst<W>& f) {
+  xyzz_load<W>(a, x, y, zz, zzz, C, k);
+  if (biased) a = xyzz_add<W>(a, nd, f);
+}
+
+// u and out: 4 x (W, C); buf: (2, 4, W, C) scratch; b*: the bias or null.
+// With a bias, u is redirected into buf, so it is not __restrict__.
 template <int W>
 __global__ void __launch_bounds__(SCAN_THREADS)
-    lane_suffix_scan_kernel(const uint32_t* __restrict__ ux, const uint32_t* __restrict__ uy,
-                            const uint32_t* __restrict__ uzz, const uint32_t* __restrict__ uzzz,
-                            uint32_t* buf, uint32_t* ox, uint32_t* oy, uint32_t* ozz,
-                            uint32_t* ozzz, int64_t C, int steps, FieldConst<W> f) {
+    lane_suffix_scan_kernel(const uint32_t* ux, const uint32_t* uy, const uint32_t* uzz,
+                            const uint32_t* uzzz, const uint32_t* bx, const uint32_t* by,
+                            const uint32_t* bzz, const uint32_t* bzzz, uint32_t* buf,
+                            uint32_t* ox, uint32_t* oy, uint32_t* ozz, uint32_t* ozzz,
+                            int64_t C, int steps, FieldConst<W> f) {
   const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = c < C;
-  Xyzz<W> a;
+  Xyzz<W> a, nd;
+  const bool biased = bias_load<W>(nd, bx, by, bzz, bzzz);
+  if (biased) {
+    // u + nd into buf[1], which step 0 reads while it writes buf[0]
+    uint32_t* ub = buf + 4 * W * C;
+    if (live) {
+      xyzz_load<W>(a, ux, uy, uzz, uzzz, C, c);
+      lanes_store<W>(ub, C, c, xyzz_add<W>(a, nd, f));
+    }
+    cg::this_grid().sync();
+    ux = ub;
+    uy = ub + W * C;
+    uzz = ub + 2 * W * C;
+    uzzz = ub + 3 * W * C;
+  }
   if (live) {
     if (c + 1 < C) {
       xyzz_load<W>(a, ux, uy, uzz, uzzz, C, c + 1);
@@ -91,23 +137,31 @@ __global__ void __launch_bounds__(SCAN_THREADS)
       cg::this_grid().sync();
     }
   }
-  if (live) xyzz_store<W>(ox, oy, ozz, ozzz, C, c, a);
+  if (live) {
+    if (biased) a = xyzz_add<W>(a, nd, f);
+    xyzz_store<W>(ox, oy, ozz, ozzz, C, c, a);
+  }
 }
 
-// p: 4 x (W, C) with C a power of two, 2 <= C <= 2 FOLD_THREADS; one block
-// of C / 2 threads; out: 4 x W words, word i at o[i * ostride].
+// p: 4 x (W, C) with C a power of two, 1 <= C <= 2 FOLD_THREADS; one block
+// of max(C / 2, 1) threads; b*: the bias or null; out: 4 x W words, word i
+// at o[i * ostride].
 template <int W>
 __global__ void __launch_bounds__(FOLD_THREADS)
     lane_fold_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
                      const uint32_t* __restrict__ pzz, const uint32_t* __restrict__ pzzz,
-                     uint32_t* ox, uint32_t* oy, uint32_t* ozz, uint32_t* ozzz,
-                     int64_t ostride, int64_t C, FieldConst<W> f) {
+                     const uint32_t* bx, const uint32_t* by, const uint32_t* bzz,
+                     const uint32_t* bzzz, uint32_t* ox, uint32_t* oy, uint32_t* ozz,
+                     uint32_t* ozzz, int64_t ostride, int64_t C, FieldConst<W> f) {
   __shared__ uint32_t sh[4 * W * FOLD_THREADS];
-  const int t = threadIdx.x, half = blockDim.x;
-  Xyzz<W> a, b;
-  xyzz_load<W>(a, px, py, pzz, pzzz, C, t);
-  xyzz_load<W>(b, px, py, pzz, pzzz, C, t + half);
-  a = xyzz_add<W>(a, b, f);
+  const int t = threadIdx.x, half = (int)(C / 2);
+  Xyzz<W> a, b, nd;
+  const bool biased = bias_load<W>(nd, bx, by, bzz, bzzz);
+  lane_in<W>(a, px, py, pzz, pzzz, C, t, biased, nd, f);
+  if (half > 0) {
+    lane_in<W>(b, px, py, pzz, pzzz, C, t + half, biased, nd, f);
+    a = xyzz_add<W>(a, b, f);
+  }
   for (int h = half / 2; h >= 1; h /= 2) {
     if (t >= h && t < 2 * h) lanes_store<W>(sh, FOLD_THREADS, t, a);
     __syncthreads();
@@ -133,8 +187,9 @@ static int bit_length(int64_t v) {
 #define U32(p) ((uint32_t*)(p))
 
 extern "C" cudaError_t tt_lane_suffix_scan(const void* ux, const void* uy, const void* uzz,
-                                           const void* uzzz, void* buf, void* ox, void* oy,
-                                           void* ozz, void* ozzz, int64_t C,
+                                           const void* uzzz, const void* bx, const void* by,
+                                           const void* bzz, const void* bzzz, void* buf,
+                                           void* ox, void* oy, void* ozz, void* ozzz, int64_t C,
                                            const uint32_t* consts, int W, void* stream) {
   if (C < 1) return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -144,9 +199,11 @@ extern "C" cudaError_t tt_lane_suffix_scan(const void* ux, const void* uy, const
     case 8: {
       FieldConst<8> f = load_consts<8>(consts);
       const uint32_t *ux_ = U32C(ux), *uy_ = U32C(uy), *uzz_ = U32C(uzz), *uzzz_ = U32C(uzzz);
+      const uint32_t *bx_ = U32C(bx), *by_ = U32C(by), *bzz_ = U32C(bzz), *bzzz_ = U32C(bzzz);
       uint32_t *buf_ = U32(buf), *ox_ = U32(ox), *oy_ = U32(oy), *ozz_ = U32(ozz),
                *ozzz_ = U32(ozzz);
-      void* args[] = {&ux_, &uy_, &uzz_, &uzzz_, &buf_, &ox_, &oy_, &ozz_, &ozzz_, &C, &steps, &f};
+      void* args[] = {&ux_, &uy_, &uzz_, &uzzz_, &bx_, &by_, &bzz_, &bzzz_, &buf_,
+                      &ox_, &oy_,  &ozz_, &ozzz_, &C,     &steps, &f};
       cudaError_t err = cudaLaunchCooperativeKernel((const void*)lane_suffix_scan_kernel<8>,
                                                     dim3(blocks), dim3(SCAN_THREADS), args, 0, s);
       if (err != cudaSuccess) return err;
@@ -159,16 +216,17 @@ extern "C" cudaError_t tt_lane_suffix_scan(const void* ux, const void* uy, const
 }
 
 extern "C" cudaError_t tt_lane_fold(const void* px, const void* py, const void* pzz,
-                                    const void* pzzz, void* ox, void* oy, void* ozz, void* ozzz,
-                                    int64_t ostride, int64_t C, const uint32_t* consts, int W,
-                                    void* stream) {
-  if (C < 2 || C > 2 * FOLD_THREADS || (C & (C - 1)) != 0) return cudaErrorInvalidValue;
+                                    const void* pzzz, const void* bx, const void* by,
+                                    const void* bzz, const void* bzzz, void* ox, void* oy,
+                                    void* ozz, void* ozzz, int64_t ostride, int64_t C,
+                                    const uint32_t* consts, int W, void* stream) {
+  if (C < 1 || C > 2 * FOLD_THREADS || (C & (C - 1)) != 0) return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (W) {
     case 8:
-      lane_fold_kernel<8><<<1, (unsigned)(C / 2), 0, s>>>(
-          U32C(px), U32C(py), U32C(pzz), U32C(pzzz), U32(ox), U32(oy), U32(ozz), U32(ozzz),
-          ostride, C, load_consts<8>(consts));
+      lane_fold_kernel<8><<<1, (unsigned)(C > 1 ? C / 2 : 1), 0, s>>>(
+          U32C(px), U32C(py), U32C(pzz), U32C(pzzz), U32C(bx), U32C(by), U32C(bzz), U32C(bzzz),
+          U32(ox), U32(oy), U32(ozz), U32(ozzz), ostride, C, load_consts<8>(consts));
       break;
     default:
       return cudaErrorInvalidValue;

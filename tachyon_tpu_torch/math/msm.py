@@ -9,10 +9,14 @@ with T[j] = sum_{i >= j} P_i over the sorted array and
 pos_b = searchsorted(d_sorted, b).  Per window: one stable sort, a gather
 into C lanes x R rows, the K5 sweep (per-lane suffix sums from a blind D),
 a Hillis-Steele scan of the lane totals (one launch of the lane scan, K2's
-add), the T-gather at the bucket starts (K2), the K6 sweep and a fold (one
-launch of the lane fold, into the window's column of a (W, nwin) array);
+add, which also takes off and puts back the blind: u = suffix[0] - D in,
+W'' = W - D out), the T-gather add at the bucket starts (one launch of the
+bucket kernel, ``cuda_msm.bucket_add``, straight into K6's rows), the K6
+sweep and a fold (one launch of the lane fold, which takes off K6's blind
+from every lane first, into the window's column of a (W, nwin) array);
 then Horner across all windows in one launch (``cuda_ec.horner``: K3's
-doublings and K2's add in one thread).
+doublings and K2's add in one thread).  The blinds' broadcasts over the
+lanes are made once per MSM.
 As in the JAX package, n <= 128 takes the naive path instead: a batched
 double-and-add (``scalar_mul``: one launch of the fused ladder) and a tree
 reduce (K2).
@@ -21,7 +25,8 @@ The XLA steps that are not Pallas kernels map to PyTorch calls:
 ``lax.sort_key_val`` -> ``torch.sort(stable=True)``, ``jnp.take`` ->
 indexing, ``jnp.searchsorted`` -> ``torch.searchsorted``; the window
 loop -> a Python loop, and Horner's ``fori_loop`` over K3 and K2 and the
-lane scan's and fold's ``fori_loop`` over K2 -> one kernel each.
+lane scan's and fold's ``fori_loop`` over K2 -> one kernel each; the
+T-gather's takes, add, where, pad and reshape -> the bucket kernel.
 """
 from __future__ import annotations
 
@@ -89,76 +94,56 @@ def _shift_left(p: PointXYZZ, s: int) -> PointXYZZ:
     return PointXYZZ(*cuda_ec.shift_lanes(tuple(p), s))
 
 
-def _suffix_scan_lanes(curve: SWCurve, u: PointXYZZ) -> PointXYZZ:
+def _suffix_scan_lanes(curve: SWCurve, u: PointXYZZ, bias: PointXYZZ | None = None) -> PointXYZZ:
     """EXCLUSIVE suffix sums over the last axis: out[c] = sum_{c' > c} u[c']
-    (Hillis-Steele, log C steps; one kernel launch on the card)."""
-    return PointXYZZ(*cuda_ec.lane_suffix_scan(curve.F.spec, tuple(u)))
+    (Hillis-Steele, log C steps; one kernel launch on the card); with a
+    bias point, of u + bias, plus bias."""
+    return PointXYZZ(*cuda_ec.lane_suffix_scan(curve.F.spec, tuple(u),
+                                               None if bias is None else tuple(bias)))
 
 
-def _fold_reduce_lanes(curve: SWCurve, pts: PointXYZZ, out=None) -> PointXYZZ:
+def _fold_reduce_lanes(curve: SWCurve, pts: PointXYZZ, out=None,
+                       bias: PointXYZZ | None = None) -> PointXYZZ:
     """Sum over the last axis (power-of-two length) by folding in half at
     fixed width; the result is lane 0 (one kernel launch on the card),
-    written into ``out`` (four (W,) views) when given."""
-    return PointXYZZ(*cuda_ec.lane_fold(curve.F.spec, tuple(pts), out))
+    written into ``out`` (four (W,) views) when given; with a bias point,
+    of pts + bias."""
+    return PointXYZZ(*cuda_ec.lane_fold(curve.F.spec, tuple(pts), out,
+                                        None if bias is None else tuple(bias)))
 
 
-def _sweep_suffix(curve: SWCurve, gx, gy, ginf, d: PointXYZZ) -> PointXYZZ:
-    """gx/gy: (W, R, C) sorted coords, ginf (R, C) -> suffix sums
-    (W, R, C) with suffix[:, r, c] = D + sum_{r' >= r} P[:, r', c]."""
-    C = gx.shape[-1]
-    dc = _bcast(d, (C,))
+def _sweep_suffix(curve: SWCurve, gx, gy, ginf, dc: PointXYZZ) -> PointXYZZ:
+    """gx/gy: (W, R, C) sorted coords, ginf (R, C), dc the blind on C lanes
+    -> suffix sums (R, W, C) with suffix[r, :, c] = D + sum_{r' >= r} P[:, r', c]."""
     x_r = gx.permute(1, 0, 2).contiguous()  # (R, W, C) rows for the sweep
     y_r = gy.permute(1, 0, 2).contiguous()
     inf_r = ginf.to(torch.int32)[:, None, :].contiguous()
-    suf = cuda_msm.suffix_sweep(curve.F.spec, x_r, y_r, inf_r, tuple(dc))
-    return PointXYZZ(*(t.permute(1, 0, 2) for t in suf))
+    return PointXYZZ(*cuda_msm.suffix_sweep(curve.F.spec, x_r, y_r, inf_r, tuple(dc)))
 
 
-def _sweep_reduce(curve: SWCurve, pts: PointXYZZ, d: PointXYZZ) -> PointXYZZ:
-    """(W, R, C) XYZZ values -> (W, C) blinded column totals."""
-    C = pts.x.shape[-1]
-    dc = _bcast(d, (C,))
-    rows = tuple(t.permute(1, 0, 2).contiguous() for t in pts)
-    return PointXYZZ(*cuda_msm.reduce_sweep(curve.F.spec, rows, tuple(dc)))
-
-
-def _window_sum(curve: SWCurve, packed, dw, C, R, B, blind1, blind2, out=None) -> PointXYZZ:
+def _window_sum(curve: SWCurve, packed, dw, C, R, B, blinds, out=None) -> PointXYZZ:
     """One Pippenger window: sum_i dw_i * P_i via the sorted suffix-sum
     identity.  packed: (2W, R*C) words, x then y, all zero at infinity;
-    dw: (R*C,) int32 digits in [0, B); out: four (W,) views to write the
+    dw: (R*C,) int32 digits in [0, B); blinds: D1 on K5's C lanes, -D1,
+    D2 on K6's min(512, B) lanes, -D2; out: four (W,) views to write the
     sum into, or None."""
-    d1, nd1 = blind1
-    d2, nd2 = blind2
+    dc1, nd1, dc2, nd2 = blinds
     W = packed.shape[0] // 2
-    n_pad = R * C
-    C2 = min(512, B)
-    R2 = max(1, B // C2)
     d_s, order = torch.sort(dw, stable=True)
     idx2 = order.reshape(C, R).t().reshape(-1)  # (R*C,): item c*R + r
     g = packed.index_select(1, idx2).reshape(2 * W, R, C)
     ginf = (g == 0).all(dim=0)
-    suffix = _sweep_suffix(curve, g[:W], g[W:], ginf, d1)
-    # true column totals U = suffix[:, 0, :] - D, then the exclusive
-    # lane-suffix scan Wk[c] = sum_{c' > c} U[c']
-    u = curve.add_xyzz(PointXYZZ(*(t[:, 0, :].contiguous() for t in suffix)),
-                       _bcast(nd1, (C,)))
-    wk = _suffix_scan_lanes(curve, u)
-    wpp = curve.add_xyzz(wk, _bcast(nd1, (C,)))  # W'' = W - D
-    # gather T at bucket starts: global sorted index k -> (r = k % R, c = k // R)
+    suffix = _sweep_suffix(curve, g[:W], g[W:], ginf, dc1)
+    # the true column totals U = suffix[0] - D, their exclusive lane-suffix
+    # scan Wk[c] = sum_{c' > c} U[c'], and W'' = Wk - D, in one scan
+    wpp = _suffix_scan_lanes(curve, PointXYZZ(*(t[0] for t in suffix)), nd1)
+    # T + W'' at the bucket starts (sorted index k -> row k % R, lane k // R),
+    # B - 1 buckets and one infinity, as K6's (B / C2, W, C2) rows
     bq = torch.arange(1, B, dtype=dw.dtype, device=dw.device)
-    pos = torch.searchsorted(d_s, bq)             # (B-1,) in [0, n_pad]
-    valid = pos < n_pad
-    posc = torch.where(valid, pos, 0)
-    tg = PointXYZZ(*(t[:, posc % R, posc // R] for t in suffix))
-    wg = PointXYZZ(*(t[:, posc // R] for t in wpp))
-    tv = curve.add_xyzz(tg, wg)
-    tv = PointXYZZ(*(torch.where(valid[None], t, 0) for t in tv))
-    # reduce the B-1 T values (pad one infinity to B; any order works)
-    tv = PointXYZZ(*(torch.nn.functional.pad(t, (0, 1)).reshape(W, R2, C2)
-                     for t in tv))
-    red = _sweep_reduce(curve, tv, d2)            # (W, C2), D2-biased lanes
-    red = curve.add_xyzz(red, _bcast(nd2, (C2,)))  # unbias every lane
-    return _fold_reduce_lanes(curve, red, out)
+    pos = torch.searchsorted(d_s, bq, out_int32=True)  # (B-1,) in [0, n_pad]
+    rows = cuda_msm.bucket_add(curve.F.spec, tuple(suffix), tuple(wpp), pos, min(512, B))
+    red = cuda_msm.reduce_sweep(curve.F.spec, rows, tuple(dc2))  # (W, C2), D2-biased lanes
+    return _fold_reduce_lanes(curve, red, out, nd2)  # unbias every lane, then sum
 
 
 def _tree_reduce(curve: SWCurve, pts: PointXYZZ, axis_len: int) -> PointXYZZ:
@@ -207,7 +192,7 @@ def msm(curve: SWCurve, points: AffinePoint, scalars: torch.Tensor,
     B = 1 << c
     digits = digit_decompose(scalars, total_bits, c)  # (nwin, n)
 
-    C, R, (blind1, blind2) = _layout_and_blinds(curve, n)
+    C, R, ((d1, nd1), (d2, nd2)) = _layout_and_blinds(curve, n)
     n_pad = R * C
     live = (~points.inf).to(torch.int32)[None]
     # x || y words, all zero at infinity (x = y = 0 is not on a b != 0 curve)
@@ -220,7 +205,8 @@ def msm(curve: SWCurve, points: AffinePoint, scalars: torch.Tensor,
     nwin = digits.shape[0]
     wins = tuple(torch.empty((curve.F.W, nwin), dtype=torch.int32, device=packed.device)
                  for _ in range(4))
+    blinds = (_bcast(d1, (C,)), nd1, _bcast(d2, (min(512, B),)), nd2)
     for k in range(nwin - 1, -1, -1):  # MSB window first
-        _window_sum(curve, packed, digits[k].contiguous(), C, R, B, blind1, blind2,
+        _window_sum(curve, packed, digits[k].contiguous(), C, R, B, blinds,
                     tuple(t[:, k] for t in wins))
     return PointXYZZ(*cuda_ec.horner(curve.F.spec, wins, c))

@@ -44,8 +44,9 @@ LAUNCHERS = {
     "tt_suffix_emit": [_P] * 12 + [_I64] * 4 + [_P, ctypes.c_int, _P],
     "tt_reduce_partials": [_P] * 9 + [_I64] * 4 + [_P, ctypes.c_int, _P],
     "tt_reduce_combine": [_P] * 6 + [_I64] * 2 + [ctypes.c_int, _P, ctypes.c_int, _P],
-    "tt_lane_suffix_scan": [_P] * 9 + [_I64, _P, ctypes.c_int, _P],
-    "tt_lane_fold": [_P] * 8 + [_I64, _I64, _P, ctypes.c_int, _P],
+    "tt_lane_suffix_scan": [_P] * 13 + [_I64, _P, ctypes.c_int, _P],
+    "tt_lane_fold": [_P] * 12 + [_I64, _I64, _P, ctypes.c_int, _P],
+    "tt_bucket_add": [_P] * 13 + [_I64] * 4 + [_P, ctypes.c_int, _P],
     "tt_horner_xyzz": [_P] * 8 + [_I64, ctypes.c_int, _P, ctypes.c_int, _P],
 }
 

@@ -21,15 +21,20 @@ Replace the Pallas kernels of ``tachyon_tpu/ops/pallas_ec.py``:
   (``tachyon_tpu/math/msm.py:196-222``), each in one launch
   (``csrc/lanes.cu``: a cooperative launch with a grid-wide barrier
   between the scan's steps; one block through shared memory for the
-  fold), with the loops' order of adds and so their words.
+  fold), with the loops' order of adds and so their words.  Each takes
+  an optional bias point, the window's blind adds around them
+  (``tachyon_tpu/math/msm.py:340-344`` and ``:363``, a K2 launch each
+  before): the scan sums u + bias and returns its sums + bias, the fold
+  sums every lane + bias.
 
 Kernels (``csrc/ec.cu``, ``csrc/ladder.cu``, ``csrc/xyzz.cuh``): one thread
 per point; each coordinate is a word-major ``(W, n)`` array so the loads of
 a warp coalesce.  Bound on the card: an add is 14 field multiplies (~1.9k
 word products) and a mixed add 10 (~1.4k) against 384 and 324 bytes moved,
 so both are bound by integer multiplies once there are enough points to
-fill 132 SMs; the MSM path calls K2 on 1 to 131k points, and below ~100k
-points it is bound by occupancy and launch latency.  The ladder keeps the
+fill 132 SMs; only the naive MSM's tree reduce and Pedersen's last add
+still launch K2, on 1 to 32 points, where launch latency bounds it (the
+MSM window's adds run in the lane kernels and ``cuda_msm.bucket_add``).  The ladder keeps the
 point and its accumulator in registers for all 256 bits, so it moves ~230
 bytes per lane and is bound by its multiplies alone.  The designs evaluate
 the same formulas and case order as the TPU kernel, so results are
@@ -255,66 +260,86 @@ def shift_lanes(p, s: int):
     return tuple(sh(t) for t in p)
 
 
-def lane_suffix_scan_plain(f: FieldSpec, u):
+def add_bias_plain(f: FieldSpec, p, bias):
+    """p + bias on every lane of a 4-tuple of (W, C) coords (bias: four
+    (W,) coords, the second operand), or p when bias is None."""
+    if bias is None:
+        return p
+    return add_xyzz_plain(f, p, tuple(b[:, None].expand_as(t) for b, t in zip(bias, p)))
+
+
+def lane_suffix_scan_plain(f: FieldSpec, u, bias=None):
     """Plain twin of ``lane_suffix_scan``: the JAX package's Hillis-Steele
-    loop, one complete add over the whole lane axis per step."""
+    loop, one complete add over the whole lane axis per step, on u + bias,
+    then + bias."""
     C = u[0].shape[-1]
-    wk = shift_lanes(u, 1)
+    wk = shift_lanes(add_bias_plain(f, u, bias), 1)
     for i in range(max(C - 1, 0).bit_length()):
         wk = add_xyzz_plain(f, wk, shift_lanes(wk, 1 << i))
-    return wk
+    return add_bias_plain(f, wk, bias)
 
 
-def lane_fold_plain(f: FieldSpec, pts):
+def lane_fold_plain(f: FieldSpec, pts, bias=None):
     """Plain twin of ``lane_fold``: the JAX package's fold in half at fixed
-    width; the result is lane 0."""
+    width on pts + bias; the result is lane 0."""
     C = pts[0].shape[-1]
     assert C & (C - 1) == 0
+    pts = add_bias_plain(f, pts, bias)
     for i in range(C.bit_length() - 1):
         pts = add_xyzz_plain(f, pts, shift_lanes(pts, C >> (i + 1)))
     return tuple(t[..., 0].contiguous() for t in pts)
 
 
-def _lanes_in(f: FieldSpec, p):
-    """Check a 4-tuple of (W, C) CUDA coords for the lane kernels; returns
-    W, C."""
+def _lanes_in(f: FieldSpec, p, bias=None):
+    """Check a 4-tuple of (W, C) CUDA coords for the lane kernels, and the
+    bias (four (W,) coords) when given; returns W, C and the bias's four
+    pointers (null without one)."""
     for t in p:
         if t.ndim != 2 or t.shape != p[0].shape:
             raise ValueError(f"lane coords must be four (W, C) tensors, got {t.shape}")
-    return check_cuda(f, *p), p[0].shape[1]
+    W = check_cuda(f, *p)
+    if bias is None:
+        return W, p[0].shape[1], (None,) * 4
+    for b in bias:
+        if b.shape != (W,):
+            raise ValueError(f"the bias must be four ({W},) tensors, got {b.shape}")
+    check_cuda(f, p[0], *bias)
+    return W, p[0].shape[1], tuple(b.data_ptr() for b in bias)
 
 
-def lane_suffix_scan(f: FieldSpec, u):
-    """Exclusive suffix sums over the lanes, out[c] = sum_{c' > c} u[c'],
-    of a 4-tuple of (W, C) XYZZ coords.  CPU tensors take
-    ``lane_suffix_scan_plain``; CUDA tensors launch the scan kernel (one
-    cooperative launch) or raise."""
+def lane_suffix_scan(f: FieldSpec, u, bias=None):
+    """Exclusive suffix sums over the lanes of a 4-tuple of (W, C) XYZZ
+    coords; with a bias point (four (W,) coords), of u + bias, plus bias:
+    out[c] = sum_{c' > c} (u[c'] + bias) + bias, in the JAX order of adds.
+    CPU tensors take ``lane_suffix_scan_plain``; CUDA tensors launch the
+    scan kernel (one cooperative launch) or raise."""
     if u[0].device.type == "cpu":
-        return lane_suffix_scan_plain(f, u)
-    W, C = _lanes_in(f, u)
+        return lane_suffix_scan_plain(f, u, bias)
+    W, C, bp = _lanes_in(f, u, bias)
     outs = tuple(torch.empty_like(t) for t in u)
     if C:
         buf = torch.empty((2, 4, W, C), dtype=u[0].dtype, device=u[0].device)
-        _build.launch("tt_lane_suffix_scan", *(t.data_ptr() for t in u), buf.data_ptr(),
+        _build.launch("tt_lane_suffix_scan", *(t.data_ptr() for t in u), *bp, buf.data_ptr(),
                       *(o.data_ptr() for o in outs), C, consts_ptr(f), W)
         lane_suffix_scan.launches += 1
     return outs
 
 
-def lane_fold(f: FieldSpec, pts, out=None):
+def lane_fold(f: FieldSpec, pts, out=None, bias=None):
     """The sum of a 4-tuple of (W, C) XYZZ coords over the lanes (C a power
-    of two), as 4 (W,) coords, written into ``out`` when given: four (W,)
+    of two), each lane plus the bias point first when given (four (W,)
+    coords), as 4 (W,) coords, written into ``out`` when given: four (W,)
     tensors of one stride, such as column k of four (W, nwin) arrays.  CPU
     tensors take ``lane_fold_plain``; CUDA tensors launch the fold kernel
     (one block; C <= 512) or raise."""
     if pts[0].device.type == "cpu":
-        res = lane_fold_plain(f, pts)
+        res = lane_fold_plain(f, pts, bias)
         if out is None:
             return res
         for o, t in zip(out, res):
             o.copy_(t)
         return tuple(out)
-    W, C = _lanes_in(f, pts)
+    W, C, bp = _lanes_in(f, pts, bias)
     if C & (C - 1) or not 1 <= C <= 512:
         raise ValueError(f"lane_fold takes a power of two up to 512 lanes, got {C}")
     if out is None:
@@ -325,12 +350,8 @@ def lane_fold(f: FieldSpec, pts, out=None):
                 or o.device != pts[0].device:
             raise ValueError(f"out must be four int32 ({W},) tensors of one stride on "
                              f"{pts[0].device}")
-    if C == 1:
-        for o, t in zip(out, pts):
-            o.copy_(t[:, 0])
-        return tuple(out)
-    _build.launch("tt_lane_fold", *(t.data_ptr() for t in pts), *(o.data_ptr() for o in out),
-                  stride, C, consts_ptr(f), W)
+    _build.launch("tt_lane_fold", *(t.data_ptr() for t in pts), *bp,
+                  *(o.data_ptr() for o in out), stride, C, consts_ptr(f), W)
     lane_fold.launches += 1
     return tuple(out)
 
@@ -355,7 +376,7 @@ def horner(f: FieldSpec, wins, c: int):
     Horner kernel (one launch, one thread) or raise."""
     if wins[0].device.type == "cpu":
         return horner_plain(f, wins, c)
-    W, nwin = _lanes_in(f, wins)
+    W, nwin, _ = _lanes_in(f, wins)
     if nwin < 1 or c < 0:
         raise ValueError(f"horner takes at least one window and c >= 0, got {nwin}, {c}")
     outs = tuple(torch.empty((W,), dtype=t.dtype, device=t.device) for t in wins)

@@ -1,4 +1,5 @@
-"""K5 and K6: the Pippenger bucket-phase sweeps as hand-written CUDA kernels.
+"""K5 and K6: the Pippenger bucket-phase sweeps as hand-written CUDA
+kernels, and between them the window's T-gather add (K2 at the buckets).
 
 Replace the Pallas kernels of ``tachyon_tpu/ops/pallas_msm.py``:
 
@@ -42,6 +43,15 @@ and the fold, only add these points, so its affine result does not move.
 ``reduce_sweep_segmented_plain`` is the twin of the two phases, word for
 word; ``reduce_sweep_plain`` stays the sequential twin (the CPU path),
 equal to ``reduce_sweep_jnp`` word for word.
+
+``bucket_add`` is K2 (``tachyon_tpu/ops/pallas_ec.py`` ``_add_call``,
+``pl.pallas_call`` at line 209) redesigned for the window's T-gather with
+the XLA glue around it (``tachyon_tpu/math/msm.py:348-361``): at every
+bucket start pos, T[pos % R, :, pos // R] + W''[:, pos // R], infinity
+where the digit is absent and on the pad bucket, written straight into
+K6's (R2, W, C2) rows, in one launch (``csrc/buckets.cu``).  It reads K5's
+(R, W, C) output as K5 writes it.  ``bucket_add_plain`` is the JAX
+package's code in PyTorch, word for word.
 
 The plain twins follow ``suffix_sweep_jnp`` / ``reduce_sweep_jnp``: row by
 row with the complete formulas.  From a blind D they agree bit for bit with
@@ -317,5 +327,48 @@ def reduce_sweep(f: FieldSpec, xyzz, d):
     return plan.outs
 
 
+def bucket_add_plain(f: FieldSpec, t, wpp, pos, C2: int):
+    """Plain twin of ``bucket_add``: the JAX package's gathers at the bucket
+    starts, the complete add, the mask, the pad to B and the reshape, then
+    K6's row layout."""
+    R, W, C = t[0].shape
+    valid = pos < R * C
+    posc = torch.where(valid, pos, 0).long()
+    tg = tuple(x.permute(1, 0, 2)[:, posc % R, posc // R] for x in t)
+    wg = tuple(x[:, posc // R] for x in wpp)
+    tv = add_xyzz_plain(f, tg, wg)
+    tv = tuple(torch.where(valid[None], x, 0) for x in tv)
+    B = pos.shape[0] + 1
+    return tuple(torch.nn.functional.pad(x, (0, 1)).reshape(W, B // C2, C2)
+                 .permute(1, 0, 2).contiguous() for x in tv)
+
+
+def bucket_add(f: FieldSpec, t, wpp, pos, C2: int):
+    """The window's T values at the bucket starts as K6's rows: t, four
+    (R, W, C) coords (K5's suffix sums); wpp, four (W, C) coords (W'', the
+    biased lane scan's sums); pos, the (B - 1,) int32 first sorted index of
+    each digit 1 .. B - 1, R C where it is absent.  Returns four
+    (B / C2, W, C2) coords: bucket j at row j // C2, lane j % C2, equal to
+    t[pos % R, :, pos // R] + wpp[:, pos // R], infinity for an absent
+    digit and for the pad bucket j = B - 1.  CPU tensors take
+    ``bucket_add_plain``; CUDA tensors launch the bucket kernel or raise."""
+    if t[0].device.type == "cpu":
+        return bucket_add_plain(f, t, wpp, pos, C2)
+    R, W, C = t[0].shape
+    B = pos.shape[0] + 1
+    if any(x.shape != (R, W, C) for x in t) or any(x.shape != (W, C) for x in wpp):
+        raise ValueError(f"t must be four (R, W, C) = {(R, W, C)} and wpp four (W, C) tensors")
+    if pos.ndim != 1 or C2 < 1 or B % C2:
+        raise ValueError(f"pos must be (B - 1,) with C2 = {C2} dividing B = {B}")
+    check_cuda(f, *t, *wpp, pos)
+    out = torch.empty((4, B // C2, W, C2), dtype=t[0].dtype, device=t[0].device)
+    outs = tuple(out.unbind(0))
+    _build.launch("tt_bucket_add", *(x.data_ptr() for x in (*t, *wpp, pos, *outs)),
+                  R, C, B, C2, consts_ptr(f), W)
+    bucket_add.launches += 1
+    return outs
+
+
 suffix_sweep.launches = 0
 reduce_sweep.launches = 0
+bucket_add.launches = 0
