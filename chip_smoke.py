@@ -46,16 +46,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    path; Pedersen setup(64) + commit), each step checked against host ints,
    with its time and the kernels' launch counts (K2 only in the naive
    MSMs' tree reduces and Pedersen's last add);
-6. prints the card's line, the kernels' JSON line, then the result line
+6. Groth16: the native BN254 Groth16 prover on a square chain of 2^18
+   constraints built from SEED (zk/groth16/circuits.py; domain 2^18, 2^18
+   + 2 variables): setup (every G1 point of the key in one ladder launch,
+   every G2 point in one generic ladder over Fq2), Groth16(...) with its
+   device-point uploads, prove at fixed r and s (the witness map, the four
+   G1 MSMs and the G2 MSM each timed by CUDA events), verify; the proof
+   verifies with the host pairing and fails for the public output + 1, a
+   second prove at the same r and s gives the same tuple, a wrong witness's
+   proof fails, 64 sampled a_query and b2_query points are on their
+   curves, and the G2 MSM alone at n = 2^18 (256 exact multiples of the G2
+   generator, tiled) equals the host point; with peak memory and the
+   kernels' launch counts;
+7. prints the card's line, the kernels' JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", ...}} last.
 
-Each main path (4 and 5) runs with every launch count set to 0 just before
-it, and fails if a kernel of that path (MSM_PATH, KZG_PATH) was launched no
-time.  Imports no JAX and nothing of the JAX package: the port is
-torch-only.
+Each main path (4, 5 and 6) runs with every launch count set to 0 just
+before it, and fails if a kernel of that path (MSM_PATH, KZG_PATH,
+GROTH16_PATH) was launched no time.  Phase 3 also holds K5 at the Groth16
+path's (65, 8, 4096) and K6 at its (32, 8, 512).  Imports no JAX and
+nothing of the JAX package: the port is torch-only.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -74,10 +88,13 @@ from tachyon_tpu_torch.math.ec import AffinePoint, PointXYZZ
 from tachyon_tpu_torch.math.msm import _blind_points, _bcast, msm, optimal_window_bits
 from tachyon_tpu_torch.math.ntt import Radix2Domain
 from tachyon_tpu_torch.ops import _build, cuda_ec, cuda_mont, cuda_msm, mont
+from tachyon_tpu_torch.zk.groth16 import circuits, r1cs
 
 LOG_N = 22      # the MSM path
 KZG_LOG_N = 20  # the KZG path
 KZG_SAMPLES = 64  # SRS points checked against host ints, of each kind
+GROTH16_LOG_N = 18  # the Groth16 path: 2^18 constraints, a domain of 2^18
+GROTH16_SAMPLES = 64  # a_query and b2_query points checked on their curves
 SEED = 42
 # shapes the kernels are checked at: those the 2^22 MSM (c = 17) and the
 # 2^20 KZG setup give them
@@ -92,11 +109,12 @@ SIZES = {
     "k4": 1 << 20,          # K4 lanes
     "ladder": (1 << 20, 4096),  # scalar_mul lanes (the 2^20 SRS), lanes of its plain twin
     "k5": (1024, 4096, 16, 256),  # K5 (R, C), top rows and lanes its plain twins run
-    # K5 (R, C) of smaller MSMs: n = 2^14, 2^15 - 2^9, 2^16, 2^18
-    "k5_small": ((32, 512), (64, 512), (16, 4096), (64, 4096)),
-    # K6 (R2, C2): 2^22 (c = 17) and 2^20 (c = 15); then the S sweep's,
-    # R2 = 2^c / 512 for c = 13, 15, 17
-    "k6": ((256, 512), (64, 512)),
+    # K5 (R, C) of smaller MSMs: n = 2^14, 2^15 - 2^9, 2^16, 2^18, and the
+    # Groth16 path's 2^18 + 2 (a_query, b1_query: an odd row count)
+    "k5_small": ((32, 512), (64, 512), (16, 4096), (64, 4096), (65, 4096)),
+    # K6 (R2, C2): 2^22 (c = 17), 2^20 (c = 15) and the Groth16 path's 2^18
+    # (c = 14); then the S sweep's, R2 = 2^c / 512 for c = 13, 15, 17
+    "k6": ((256, 512), (64, 512), (32, 512)),
     "k6_sweep": ((16, 512), (64, 512), (256, 512)),
     "scan": (4096, 512),    # lane scan widths: C for n >= 2^15 (both paths), and below
     "fold": 512,            # lane fold width C2
@@ -268,8 +286,9 @@ def base_points(curve, rng):
 
 
 def tile(t: torch.Tensor, n: int) -> torch.Tensor:
+    """t's last axis repeated to length n."""
     reps = -(-n // t.shape[-1])
-    return t.repeat(1, reps)[:, :n].contiguous()
+    return t.repeat(*(1,) * (t.ndim - 1), reps)[..., :n].contiguous()
 
 
 def timed_once(fn):
@@ -319,11 +338,12 @@ def row_tiled(base_x, base_y, R: int, C: int, fixed: int = 0):
     return tuple(b[:, idx].permute(1, 0, 2).contiguous() for b in (base_x, base_y))
 
 
-def k5_small(f, base_x, base_y, d1, g, device) -> list:
+def k5_small(f, base_x, base_y, d1, g, device, clock_hz) -> list:
     """K5 at the smaller MSMs' (R, C): the S that ``segments`` picks and
     each S of K5_SMALL_S, timed (CUDA events, 20 calls); every S's rows
     equal as points to S = 1's, the S = 1 rows word for word to the
-    sequential twin and the picked S's to the segmented twin."""
+    sequential twin and the picked S's to the segmented twin (timed once,
+    beside the bound)."""
     out = []
     for R, C in SIZES["k5_small"]:
         x, y = row_tiled(base_x, base_y, R, C)
@@ -340,7 +360,9 @@ def k5_small(f, base_x, base_y, d1, g, device) -> list:
         if word_err(one, cuda_msm.suffix_sweep_plain(f, x, y, inf, dc)) != 0:
             raise AssertionError(f"suffix_sweep at ({R}, {C}), S = 1: words differ "
                                  f"from the sequential twin")
-        if word_err(plans[0].outs, cuda_msm.suffix_sweep_segmented_plain(f, x, y, inf, dc, S)):
+        want, plain_ms = timed_once(
+            lambda: cuda_msm.suffix_sweep_segmented_plain(f, x, y, inf, dc, S))
+        if word_err(plans[0].outs, want):
             raise AssertionError(f"suffix_sweep at ({R}, {C}), S = {S}: words differ "
                                  f"from the segmented twin")
         for plan in plans:
@@ -348,10 +370,14 @@ def k5_small(f, base_x, base_y, d1, g, device) -> list:
                                     tuple(t.permute(1, 0, 2) for t in one)).all()):
                 raise AssertionError(f"suffix_sweep at ({R}, {C}): S = {plan.S} and S = 1 "
                                      f"differ as points")
-        log(f"[k5-small] ({R}, 8, {C}): picked S={S} {ms[S]:.4f} ms; by S "
+        live = R * C - int(inf.sum())
+        bms, by = bound_ms(R * C * (32 + 32 + 4) + 4 * 32 * C + 4 * 32 * R * C,
+                           WORD_PRODUCTS * 10 * live, clock_hz)
+        log(f"[k5-small] ({R}, 8, {C}): picked S={S} {ms[S]:.4f} ms (plain {plain_ms:.4f} ms, "
+            f"bound {bms:.4f} ms, {by}); by S "
             + ", ".join(f"{k}: {v:.4f}" for k, v in sorted(ms.items())))
-        out.append({"shape": [R, 8, C], "S": S, "ms": ms[S],
-                    "ms_by_S": {str(k): v for k, v in sorted(ms.items())}})
+        out.append({"shape": [R, 8, C], "S": S, "ms": ms[S], "plain_ms": plain_ms,
+                    "bound_ms": bms, "ms_by_S": {str(k): v for k, v in sorted(ms.items())}})
     return out
 
 
@@ -639,7 +665,7 @@ def phase_kernels(device, base_x, base_y, clock_hz, results):
         f"with other words")
     results["suffix_sweep_phases"] = {"S": S, "rows_per_segment": L, "phase_ms": phase_ms,
                                       "small_shapes": k5_small(fq, base_x, base_y, d1, g,
-                                                               device)}
+                                                               device, clock_hz)}
     check("suffix_sweep", got5, want5, k5_ms, plain5, f"({R}, 8, {C})", f"({R}, 8, {c0})",
           work5, results)
     del plan
@@ -1202,6 +1228,130 @@ def phase_kzg(device):
     return launches
 
 
+# the Groth16 prove: four G1 MSMs above 128 points (no naive MSM, so no
+# K2), one setup ladder launch for every G1 point of the key; the G2 points
+# and the G2 MSM run the generic path, K1 for every base multiply
+GROTH16_PATH = ("mont_mul", "scalar_mul_xyzz", "suffix_sweep", "bucket_add", "reduce_sweep",
+                "lane_suffix_scan", "lane_fold", "horner")
+GROTH16_G1_MSMS = 4  # A, B1, L, H
+
+
+def cuda_timer(out: dict):
+    """A step timer for ``Groth16.prove``: CUDA events and the host clock
+    around each step, recorded into out[name]."""
+    @contextlib.contextmanager
+    def step(name):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        yield
+        end.record()
+        torch.cuda.synchronize()
+        out[name] = {"ms": round(start.elapsed_time(end), 4),
+                     "host_s": round(time.perf_counter() - t0, 4)}
+    return step
+
+
+def g2_msm_check(device) -> dict:
+    """The G2 MSM alone at n = 2^18: 256 exact multiples [k_i] of the G2
+    generator tiled, 254-bit scalars as in bench.py's set; the expected
+    point is one host g2_mul.  Returns its time and the host's."""
+    g2 = curves.bn254_g2(device)
+    n = 1 << GROTH16_LOG_N
+    rng = np.random.default_rng(SEED + 2)
+    G2 = (tuple(g2.gen_x), tuple(g2.gen_y))
+    ks = rng.integers(1, 1 << 30, 256)
+    t0 = time.perf_counter()
+    base = r1cs._dev_points(g2, [host_ec.g2_mul(G2, int(k)) for k in ks])
+    sc = rng.integers(0, 1 << 16, size=(g2.SF.L, n), dtype=np.uint32)
+    sc[-1] &= 0x3FFF  # below the scalar modulus
+    expected = host_ec.g2_mul(G2, host_ec.tiled_scalar(ks, sc, g2.SF.p))
+    host_s = time.perf_counter() - t0
+    points = AffinePoint(tile(base.x, n), tile(base.y, n), tile(base.inf[None], n)[0])
+    scalars = limbs.from_jax_limbs(sc, device)
+    t0 = time.perf_counter()
+    aff, ms = timed_once(lambda: g2.to_affine(msm(g2, points, scalars)))
+    wall_s = time.perf_counter() - t0
+    if aff.x.shape != (2, g2.F.base.W) or not bool(g2.is_on_curve(aff)):
+        raise AssertionError("G2 MSM result malformed or off the curve")
+    got = r1cs._host_points(g2, AffinePoint(aff.x[..., None], aff.y[..., None], aff.inf[None]))
+    if got[0] != expected:
+        raise AssertionError(f"G2 MSM at 2^{GROTH16_LOG_N}: {got[0]} != host {expected}")
+    return {"n": n, "ms": round(ms, 4), "wall_s": round(wall_s, 4), "host_expected_s": round(host_s, 4)}
+
+
+def phase_groth16(device):
+    """The native Groth16 prover at 2^18 constraints through the port's
+    entry points (setup, Groth16, prove at fixed r and s, verify), each
+    step timed and the proof checked; returns its launches."""
+    R = r1cs.pairing.R
+    rng = np.random.default_rng(SEED + 3)
+
+    def draw():
+        return int.from_bytes(rng.bytes(40), "little") % (R - 1) + 1
+
+    x0, r, s = draw(), draw(), draw()
+    secrets = [draw() for _ in range(5)]
+    t0 = time.perf_counter()
+    circuit, public, private = circuits.square_chain(1 << GROTH16_LOG_N, x0)
+    circuit_s = time.perf_counter() - t0
+    steps, prove_steps = {}, {}
+
+    def timed(name, fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        steps[name] = {"ms": round(start.elapsed_time(end), 4),
+                       "host_s": round(time.perf_counter() - t0, 4)}
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    pp = timed("setup", lambda: r1cs.setup(circuit, "bn254", rng=iter(secrets).__next__,
+                                           device=device))
+    g16 = timed("groth16_init", lambda: r1cs.Groth16(pp, device))
+    proof = timed("prove", lambda: g16.prove(public, private, r=r, s=s,
+                                             timer=cuda_timer(prove_steps)))
+    launches = read_launches(GROTH16_PATH)
+    peak = torch.cuda.max_memory_allocated()
+    if launches["scalar_mul_xyzz"] != 1 or launches["horner"] != GROTH16_G1_MSMS \
+            or launches["add_xyzz"] != 0:
+        raise AssertionError(f"the Groth16 path launched the ladder {launches['scalar_mul_xyzz']} "
+                             f"times, Horner {launches['horner']} and K2 {launches['add_xyzz']}, "
+                             f"not 1, {GROTH16_G1_MSMS} and 0")
+    ok = timed("verify", lambda: g16.verify(proof, public))
+
+    # checks, beyond the main path's run
+    t0 = time.perf_counter()
+    if ok is not True or g16.verify(proof, [(public[0] + 1) % R]) is not False:
+        raise AssertionError("Groth16: the proof does not verify, or verifies for output + 1")
+    if g16.prove(public, private, r=r, s=s) != proof:
+        raise AssertionError("Groth16: a second prove at the same r and s gives another tuple")
+    bad = list(private)
+    bad[0] = (bad[0] + 1) % R  # x_0 * x_0 = x_1 no longer holds
+    if g16.verify(g16.prove(public, bad, r=r, s=s), public) is not False:
+        raise AssertionError("Groth16: a wrong witness's proof verifies")
+    nv = circuit.num_vars
+    idx = sorted(set(rng.choice(nv, GROTH16_SAMPLES - 2, replace=False).tolist()) | {0, nv - 1})
+    for curve, query in ((g16.g1, pp.a_query), (g16.g2, pp.b2_query)):
+        pts = r1cs._dev_points(curve, [query[i] for i in idx])
+        if not bool(curve.is_on_curve(pts).all()) or bool(pts.inf.all()):
+            raise AssertionError(f"Groth16 setup: sampled {curve.name} query points are off "
+                                 f"the curve")
+    checks_s = time.perf_counter() - t0
+    g2_alone = g2_msm_check(device)
+    log(f"[groth16] bn254 constraints=2^{GROTH16_LOG_N} domain={pp.n} vars={nv} verified=True "
+        f"circuit_s={circuit_s:.3f} checks_s={checks_s:.3f} peak_mem_bytes={peak} "
+        f"steps={json.dumps(steps)} prove_steps={json.dumps(prove_steps)} "
+        f"g2_msm={json.dumps(g2_alone)} launches={json.dumps(launches)}")
+    return launches
+
+
 def ptxas_registers(nvcc_log: str) -> dict:
     """Registers and spill-store bytes of each kernel from ptxas's -v
     lines, by the kernel's unmangled name."""
@@ -1299,17 +1449,20 @@ def main() -> int:
     msm_launches = phase_slice(device)
     torch.cuda.empty_cache()
     kzg_launches = phase_kzg(device)
+    torch.cuda.empty_cache()
+    groth16_launches = phase_groth16(device)
 
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():
         r = results[name]
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                 "launches": msm_launches[name] + kzg_launches[name],
+                 "launches": msm_launches[name] + kzg_launches[name] + groth16_launches[name],
                  "max_abs_err": r["max_abs_err"],
                  "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": None, "fmul_per_s": r["fmul_per_s"],
                  "launches_by_path": {f"msm_2^{LOG_N}": msm_launches[name],
-                                      f"kzg_2^{KZG_LOG_N}": kzg_launches[name]},
+                                      f"kzg_2^{KZG_LOG_N}": kzg_launches[name],
+                                      f"groth16_2^{GROTH16_LOG_N}": groth16_launches[name]},
                  "shape": r["shape"], "plain_shape": r["plain_shape"]}
         if name in ALSO_REPLACES:
             entry["also_replaces"] = ALSO_REPLACES[name]

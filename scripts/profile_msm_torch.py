@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
 """Profile the PyTorch/CUDA port's BN254 paths on one GPU with torch.profiler.
 
-    python3 scripts/profile_msm_torch.py [--log-n 22] [--kzg-log-n 20] [--out DIR]
+    python3 scripts/profile_msm_torch.py [--log-n 22] [--kzg-log-n 20]
+        [--groth16-log-n 18] [--out DIR]
 
 Builds the kernels, then traces, each after one warm-up run:
 - the G1 MSM (msm + to_affine) on chip_smoke.py's 2^log_n point set;
 - the KZG unsafe setup at 2^kzg_log_n;
-- one KZG commit (msm + to_affine) of 2^kzg_log_n coefficients.
+- one KZG commit (msm + to_affine) of 2^kzg_log_n coefficients;
+- one Groth16 prove (at fixed r and s) on chip_smoke.py's square chain of
+  2^groth16_log_n constraints, after its setup (0 skips it).
 For each it prints the device time by kernel name and the device busy and
 idle shares of the traced window, and writes the Chrome trace to
-<out>/<name>_trace.json.  Needs CUDA; imports no JAX.
+<out>/<name>_trace.json; the prove's G2 MSM launches millions of small
+kernels (the generic path), so its trace records the device activity only
+and is not written.  Needs CUDA; imports no JAX.
 """
 from __future__ import annotations
 
@@ -28,13 +33,17 @@ from tachyon_tpu_torch.crypto import kzg  # noqa: E402
 from tachyon_tpu_torch.math import curves  # noqa: E402
 from tachyon_tpu_torch.math.msm import msm  # noqa: E402
 from tachyon_tpu_torch.ops import _build  # noqa: E402
+from tachyon_tpu_torch.zk.groth16 import circuits, r1cs  # noqa: E402
 
 
-def profile(name: str, run, out: Path) -> None:
-    """Warm up once, then trace one run of ``run``."""
+def profile(name: str, run, out: Path, host: bool = True) -> None:
+    """Warm up once, then trace one run of ``run``; with ``host`` false
+    only the device activity is recorded and no trace is written."""
     run()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if host:
+        acts.append(torch.profiler.ProfilerActivity.CPU)
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         run()
@@ -49,6 +58,8 @@ def profile(name: str, run, out: Path) -> None:
           f"idle_share={1 - busy_us / 1e6 / wall:.3f} launches={sum(c for _, _, c in dev)}")
     for key, t, cnt in dev[:20]:
         print(f"[kernel-time] {t / 1e3:10.3f} ms  {100 * t / busy_us:5.1f}%  x{cnt:<6d} {key[:90]}")
+    if not host:
+        return
     out.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(out / f"{name}_trace.json"))
     cpu = sorted(events, key=lambda e: -e.self_cpu_time_total)[:10]
@@ -60,6 +71,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--log-n", type=int, default=22)
     ap.add_argument("--kzg-log-n", type=int, default=20)
+    ap.add_argument("--groth16-log-n", type=int, default=18)
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -85,6 +97,17 @@ def main() -> int:
     coeffs = torch.randint(0, 1 << 29, (8, n), dtype=torch.int32, device=device)
     profile(f"kzg_commit_2^{args.kzg_log_n}",
             lambda: kzg.to_int_point(kzg.commit(params["p"], coeffs)), out)
+    del params, coeffs
+    torch.cuda.empty_cache()
+    if args.groth16_log_n:
+        rr = r1cs.pairing.R
+        circuit, public, private = circuits.square_chain(1 << args.groth16_log_n, 0x1234567)
+        t0 = time.perf_counter()
+        g16 = r1cs.Groth16(r1cs.setup(circuit, rng=iter([11, 12, 13, 14, 15]).__next__,
+                                      device=device), device)
+        print(f"[groth16] setup + Groth16(...) {time.perf_counter() - t0:.2f} s")
+        profile(f"groth16_prove_2^{args.groth16_log_n}",
+                lambda: g16.prove(public, private, r=rr - 5, s=rr - 7), out, host=False)
     return 0
 
 

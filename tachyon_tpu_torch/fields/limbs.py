@@ -43,22 +43,24 @@ def int_to_words(x: int, W: int) -> np.ndarray:
                     dtype=np.uint32)
 
 
-def from_jax_limbs(a, device=None) -> torch.Tensor:
-    """(L, *b) uint32 16-bit limbs -> (L/2, *b) int32 words."""
-    a = np.asarray(a, dtype=np.uint32)
+def from_jax_limbs(a, device=None, axis: int = 0) -> torch.Tensor:
+    """(L, *b) uint32 16-bit limbs -> (L/2, *b) int32 words; the limb axis
+    is ``axis`` (1 for an extension element (D, L, *b) -> (D, L/2, *b))."""
+    a = np.moveaxis(np.asarray(a, dtype=np.uint32), axis, 0)
     if a.shape[0] % 2:
         raise ValueError(f"limb axis of length {a.shape[0]} is not even")
-    words = a[0::2] | (a[1::2] << np.uint32(16))
+    words = np.moveaxis(a[0::2] | (a[1::2] << np.uint32(16)), 0, axis)
     return torch.from_numpy(np.ascontiguousarray(words).view(np.int32)).to(device)
 
 
-def to_jax_limbs(t: torch.Tensor) -> np.ndarray:
-    """(W, *b) int32 words -> (2W, *b) uint32 16-bit limbs."""
-    w = t.detach().cpu().contiguous().numpy().view(np.uint32)
+def to_jax_limbs(t: torch.Tensor, axis: int = 0) -> np.ndarray:
+    """(W, *b) int32 words -> (2W, *b) uint32 16-bit limbs; the word axis
+    is ``axis``."""
+    w = np.moveaxis(t.detach().cpu().contiguous().numpy().view(np.uint32), axis, 0)
     out = np.empty((2 * w.shape[0],) + w.shape[1:], dtype=np.uint32)
     out[0::2] = w & np.uint32(0xFFFF)
     out[1::2] = w >> np.uint32(16)
-    return out
+    return np.ascontiguousarray(np.moveaxis(out, 0, axis))
 
 
 def affine_from_jax(p, device=None):

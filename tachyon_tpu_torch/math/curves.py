@@ -1,5 +1,6 @@
 """Concrete curve instances of the port (parameters as in
-``tachyon_tpu/math/curves.py``).  BN254 G2 waits for the Fq2 port.
+``tachyon_tpu/math/curves.py``): BN254 G1 over Fq and G2 over
+Fq2 = Fq[u]/(u^2 + 1).
 
 Every constructor puts the field's constants on the card unless the caller
 passes another device (the CPU tests pass ``"cpu"``)."""
@@ -9,6 +10,7 @@ import torch
 
 from tachyon_tpu_torch.fields import presets
 from tachyon_tpu_torch.math.ec import SWCurve
+from tachyon_tpu_torch.math.extfield import ExtField
 from tachyon_tpu_torch.math.field import PrimeField
 
 
@@ -20,6 +22,11 @@ def bn254_fr(device=torch.device("cuda")) -> PrimeField:
     return PrimeField(presets.BN254_FR, device)
 
 
+def bn254_fq2(device=torch.device("cuda")) -> ExtField:
+    # Fq2 = Fq[u]/(u^2 + 1)
+    return ExtField(bn254_fq(device), 2, -1, name="bn254_fq2")
+
+
 def bn254_g1(device=torch.device("cuda")) -> SWCurve:
     return SWCurve(
         name="bn254_g1",
@@ -28,5 +35,36 @@ def bn254_g1(device=torch.device("cuda")) -> SWCurve:
         b=3,
         gen_x=1,
         gen_y=2,
+        scalar_field=bn254_fr(device),
+    )
+
+
+def _bn254_g2_params():
+    """b2 = 3/(9+u), generator from the standard bn254 G2 spec."""
+    p = presets.BN254_FQ.p
+    # (9+u)^-1 = (9-u)/82
+    inv82 = pow(82, -1, p)
+    b0 = (27 * inv82) % p
+    b1 = (-3 * inv82) % p
+    gx = [
+        10857046999023057135944570762232829481370756359578518086990519993285655852781,
+        11559732032986387107991004021392285783925812861821192530917403151452391805634,
+    ]
+    gy = [
+        8495653923123431417604973247489272438418190587263600148770280649306958101930,
+        4082367875863433681332203403145435568316851327593401208105741076214120093531,
+    ]
+    return [b0, b1], gx, gy
+
+
+def bn254_g2(device=torch.device("cuda")) -> SWCurve:
+    b, gx, gy = _bn254_g2_params()
+    return SWCurve(
+        name="bn254_g2",
+        field=bn254_fq2(device),
+        a=[0, 0],
+        b=b,
+        gen_x=gx,
+        gen_y=gy,
         scalar_field=bn254_fr(device),
     )

@@ -22,6 +22,8 @@ class PrimeField:
     """A prime field on one device: the card unless the caller passes
     another; on a host without CUDA the default raises."""
 
+    coeff_ndim = 1  # an element's structure axes: the words
+
     def __init__(self, spec: FieldSpec, device=torch.device("cuda")):
         self.spec = spec
         self.device = torch.device(device)

@@ -4,9 +4,11 @@ The port's counterpart of the JAX package's test helpers
 (``tests/test_ec.py`` ``py_add``/``py_mul``, ``math/msm.py``
 ``_host_point_mul``/``msm_host_reference``): affine add, scalar multiple,
 an exact MSM, the MSM of a tiled point set (what ``chip_smoke.py`` checks
-the 2^22 MSM against), and the blind-point derivation of the sweeps;
-and the BN254 G2 add and scalar multiple that KZG's ``verify`` takes
-(the JAX package's ``zk/groth16/prover.py`` ``_py_g2_add``/``_py_g2_mul``).
+the 2^22 MSM and the 2^18 G2 MSM against), and the blind-point derivation
+of the sweeps;
+and the BN254 G2 add and scalar multiple that KZG's ``verify`` and the
+Groth16 prover take (the JAX package's ``zk/groth16/r1cs.py``
+``g2_add``/``g2_mul``).
 A point is an ``(x, y)`` tuple of ints (of Fq2 pairs for G2), or None for
 infinity.
 """
@@ -57,11 +59,11 @@ def msm(points, scalars, a: int, mod: int):
     return acc
 
 
-def msm_tiled(gen, ks, scalar_limbs: np.ndarray, a: int, mod: int, order: int):
-    """MSM of points P_i = [ks[i mod m]] G with 16-bit-limb scalars
-    (Ls, n), n a multiple of m = len(ks): it equals [k_total] G with
-    k_total = sum_j ks[j] * (sum_{i = j mod m} s_i) mod order.  Per-class
-    limb sums in numpy, then one scalar multiple: milliseconds at n = 2^22."""
+def tiled_scalar(ks, scalar_limbs: np.ndarray, order: int) -> int:
+    """The scalar k_total = sum_j ks[j] * (sum_{i = j mod m} s_i) mod order of
+    an MSM of points P_i = [ks[i mod m]] G with 16-bit-limb scalars (Ls, n),
+    n a multiple of m = len(ks): the MSM is [k_total] G.  Per-class limb
+    sums in numpy: milliseconds at n = 2^22."""
     m = len(ks)
     Ls, n = scalar_limbs.shape
     sums = scalar_limbs.reshape(Ls, n // m, m).sum(axis=1, dtype=np.uint64)
@@ -69,7 +71,13 @@ def msm_tiled(gen, ks, scalar_limbs: np.ndarray, a: int, mod: int, order: int):
     for j in range(m):
         s_j = sum(int(sums[l, j]) << (16 * l) for l in range(Ls))
         k_total += int(ks[j]) * s_j
-    return scalar_mul(gen, k_total % order, a, mod)
+    return k_total % order
+
+
+def msm_tiled(gen, ks, scalar_limbs: np.ndarray, a: int, mod: int, order: int):
+    """MSM of points P_i = [ks[i mod m]] G with 16-bit-limb scalars: one
+    scalar multiple of G (``tiled_scalar``)."""
+    return scalar_mul(gen, tiled_scalar(ks, scalar_limbs, order), a, mod)
 
 
 def blind_points(gen, a: int, mod: int, order: int):

@@ -21,6 +21,17 @@ As in the JAX package, n <= 128 takes the naive path instead: a batched
 double-and-add (``scalar_mul``: one launch of the fused ladder) and a tree
 reduce (K2).
 
+Curves without point kernels (G2 over Fq2; ``SWCurve._kernel_ok`` false)
+take the JAX package's generic path, ``_msm_generic``: the same window
+with the complete formulas in field ops (K1 for every base multiply on the
+card) and the blinds at infinity.  The sweeps are row loops of the generic
+mixed add and add (``suffix_sweep_jnp`` / ``reduce_sweep_jnp``), the lane
+scan and fold loops of the generic add, the T-gather an add with its
+``where`` and pad, Horner c doublings and an add per window; the points
+are gathered unpacked, with the infinity flags beside them (pad lanes at
+infinity).  Adding an infinite blind leaves a point's words as they are,
+so those adds are skipped.
+
 The XLA steps that are not Pallas kernels map to PyTorch calls:
 ``lax.sort_key_val`` -> ``torch.sort(stable=True)``, ``jnp.take`` ->
 indexing, ``jnp.searchsorted`` -> ``torch.searchsorted``; the window
@@ -171,18 +182,88 @@ MSM_NAIVE_THRESHOLD = 128
 
 
 def _layout_and_blinds(curve: SWCurve, n: int):
-    """The (R, C) sweep layout for n points, and the blind points."""
+    """The (R, C) sweep layout for n points, and the blind points: at
+    infinity where the curve has no point kernels (no blinding needed)."""
     C = 4096 if n >= (1 << 15) else 512
     R = -(-n // C)
-    return C, R, _blind_points(curve)
+    if curve._kernel_ok:
+        return C, R, _blind_points(curve)
+    inf = curve.infinity_xyzz(())
+    return C, R, ((inf, inf), (inf, inf))
+
+
+def _window_sum_generic(curve: SWCurve, px, py, pinf, dw, C, R, B, d1, d2) -> PointXYZZ:
+    """One window of the generic path, as the JAX package's ``_window_sum``
+    with ``packed=None``: px/py (*lead, R*C) coords, pinf (R*C,) bool,
+    dw (R*C,) digits; d1, d2 the (infinite) blinds."""
+    n_pad = R * C
+    C2 = min(512, B)
+    R2 = max(1, B // C2)
+    d_s, order = torch.sort(dw, stable=True)
+    idx2 = order.reshape(C, R).t()  # (R, C): item c*R + r
+    gx, gy, ginf = px[..., idx2], py[..., idx2], pinf[idx2]
+    # suffix_sweep_jnp: rows bottom-up from D1 with the complete mixed add
+    acc = _bcast(d1, (C,))
+    rows = [None] * R
+    for r in range(R - 1, -1, -1):
+        acc = curve.madd_xyzz(acc, AffinePoint(gx[..., r, :], gy[..., r, :], ginf[r]))
+        rows[r] = acc
+    suffix = PointXYZZ(*(torch.stack(ts, dim=-2) for ts in zip(*rows)))  # (*lead, R, C)
+    # the lane scan of the column totals (u = suffix[0] - D1, D1 at infinity)
+    wk = _shift_left(PointXYZZ(*(t[..., 0, :] for t in suffix)), 1)
+    for i in range(max(C - 1, 0).bit_length()):
+        wk = curve.add_xyzz(wk, _shift_left(wk, 1 << i))
+    # T + W'' at the bucket starts (sorted index k -> row k % R, lane k // R)
+    bq = torch.arange(1, B, dtype=dw.dtype, device=dw.device)
+    pos = torch.searchsorted(d_s, bq)
+    valid = pos < n_pad
+    posc = torch.where(valid, pos, 0)
+    flat = (posc % R) * C + posc // R
+    lead = px.shape[:-1]
+    tg = PointXYZZ(*(t.reshape(*lead, n_pad)[..., flat] for t in suffix))
+    tv = curve.add_xyzz(tg, PointXYZZ(*(t[..., posc // R] for t in wk)))
+    tv = [torch.nn.functional.pad(torch.where(valid, t, 0), (0, 1)).reshape(*lead, R2, C2)
+          for t in tv]
+    # reduce_sweep_jnp: rows top-down from D2 with the complete add
+    red = _bcast(d2, (C2,))
+    for r in range(R2):
+        red = curve.add_xyzz(red, PointXYZZ(*(t[..., r, :] for t in tv)))
+    # the fold (unbiasing by -D2 at infinity leaves red as it is): each
+    # step adds lane c + C2/2^(i+1) to lane c; lane 0 reads only the lower
+    # half, so halving the width each step gives its words (a tree reduce)
+    return _tree_reduce(curve, red, C2)
+
+
+def _msm_generic(curve: SWCurve, points: AffinePoint, digits: torch.Tensor,
+                 c: int, n: int) -> PointXYZZ:
+    """The windows and Horner of the generic path; digits (nwin, n)."""
+    C, R, ((d1, _), (d2, _)) = _layout_and_blinds(curve, n)
+    n_pad = R * C
+    px, py, pinf = points.x, points.y, points.inf
+    if n_pad != n:  # pad lanes: zero coordinates, at infinity, digit 0
+        px = torch.nn.functional.pad(px, (0, n_pad - n))
+        py = torch.nn.functional.pad(py, (0, n_pad - n))
+        pinf = torch.nn.functional.pad(pinf, (0, n_pad - n), value=True)
+        digits = torch.nn.functional.pad(digits, (0, n_pad - n))
+    acc = curve.infinity_xyzz(())
+    for k in range(digits.shape[0] - 1, -1, -1):  # MSB window first
+        win = _window_sum_generic(curve, px, py, pinf, digits[k], C, R, 1 << c, d1, d2)
+        # Horner: acc = 2^c acc + win (the doublings of the first window's
+        # infinity are all-zero words, so they are skipped)
+        if k < digits.shape[0] - 1:
+            for _ in range(c):
+                acc = curve.dbl_xyzz(acc)
+        acc = curve.add_xyzz(acc, win)
+    return acc
 
 
 def msm(curve: SWCurve, points: AffinePoint, scalars: torch.Tensor,
         c: int | None = None, total_bits: int | None = None) -> PointXYZZ:
     """Variable-base MSM: sum_i scalars_i * points_i -> one XYZZ point.
 
-    points: AffinePoint with (W, n) coords; scalars: (Ws, n) plain int32
-    words of the scalar field.  total_bits overrides the scalar bit width.
+    points: AffinePoint with (W, n) coords ((D, W, n) over an extension
+    field); scalars: (Ws, n) plain int32 words of the scalar field.
+    total_bits overrides the scalar bit width.
     """
     n = scalars.shape[1]
     if n <= MSM_NAIVE_THRESHOLD:
@@ -191,6 +272,8 @@ def msm(curve: SWCurve, points: AffinePoint, scalars: torch.Tensor,
     c = c or optimal_window_bits(total_bits, n)
     B = 1 << c
     digits = digit_decompose(scalars, total_bits, c)  # (nwin, n)
+    if not curve._kernel_ok:
+        return _msm_generic(curve, points, digits, c, n)
 
     C, R, ((d1, nd1), (d2, nd2)) = _layout_and_blinds(curve, n)
     n_pad = R * C

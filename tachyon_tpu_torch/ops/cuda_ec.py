@@ -152,15 +152,26 @@ def madd_xyzz_plain(f: FieldSpec, p, qx, qy, q_inf):
     return out
 
 
+def top_bit(scalars) -> int:
+    """1 + the highest bit set in any lane of (Ws, *batch) scalar words (0
+    if none): the ladder's steps above it keep every accumulator at
+    infinity, all-zero words that the double keeps, so a twin that skips
+    them gives the same words."""
+    if not scalars.numel():
+        return 0
+    tops = mont.widen(scalars).reshape(scalars.shape[0], -1).amax(dim=1).tolist()
+    return max((WORD_BITS * k + v.bit_length() for k, v in enumerate(tops) if v), default=0)
+
+
 def scalar_mul_plain(f: FieldSpec, px, py, pinf, scalars):
-    """[s]P lane by lane: MSB-first over all Ws * 32 bits of the scalar
-    words, from infinity, a double, a mixed add and a select on the bit at
-    every step, as the JAX package's ``scalar_mul`` scan.  pinf: bool."""
-    nbits = scalars.shape[0] * WORD_BITS
+    """[s]P lane by lane: MSB-first over the bits of the scalar words,
+    from infinity, a double, a mixed add and a select on the bit at every
+    step, as the JAX package's ``scalar_mul`` scan (which also runs the
+    steps above ``top_bit``: they leave the words as they are).  pinf:
+    bool."""
     zero = torch.zeros_like(px)
     acc = (zero, zero.clone(), zero.clone(), zero.clone())
-    for i in range(nbits):
-        b = nbits - 1 - i
+    for b in range(top_bit(scalars) - 1, -1, -1):
         bit = ((scalars[b // WORD_BITS] >> (b % WORD_BITS)) & 1) != 0
         acc = dbl_xyzz_plain(f, acc)
         added = madd_xyzz_plain(f, acc, px, py, pinf)
@@ -280,13 +291,16 @@ def lane_suffix_scan_plain(f: FieldSpec, u, bias=None):
 
 
 def lane_fold_plain(f: FieldSpec, pts, bias=None):
-    """Plain twin of ``lane_fold``: the JAX package's fold in half at fixed
-    width on pts + bias; the result is lane 0."""
+    """Plain twin of ``lane_fold``: the JAX package's fold in half on
+    pts + bias; the result is lane 0.  Its step i adds lane c + C/2^(i+1)
+    to lane c at fixed width; lane 0 reads only the lower half, so halving
+    the width each step gives its words with half the adds."""
     C = pts[0].shape[-1]
     assert C & (C - 1) == 0
     pts = add_bias_plain(f, pts, bias)
-    for i in range(C.bit_length() - 1):
-        pts = add_xyzz_plain(f, pts, shift_lanes(pts, C >> (i + 1)))
+    while C > 1:
+        C //= 2
+        pts = add_xyzz_plain(f, tuple(t[..., :C] for t in pts), tuple(t[..., C:] for t in pts))
     return tuple(t[..., 0].contiguous() for t in pts)
 
 

@@ -74,37 +74,42 @@ def check_cuda(f: FieldSpec, *ts: torch.Tensor, any_width: bool = False) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _antidiag(L: int, device: torch.device) -> torch.Tensor:
-    """(L*L,) column index i + j of the partial product a_i * b_j."""
-    i = torch.arange(L, device=device)
-    return (i[:, None] + i[None, :]).reshape(-1)
+def _columns(W: int, device: torch.device) -> torch.Tensor:
+    """(W * 2W,) 16-bit column 2i + j of the partial product a_i * b16_j
+    (a_i a 32-bit word at 2^(32 i), b16_j a 16-bit limb at 2^(16 j))."""
+    i = torch.arange(W, device=device)
+    j = torch.arange(2 * W, device=device)
+    return (2 * i[:, None] + j[None, :]).reshape(-1)
 
 
 def mul_plain(f: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Plain twin of K1: 16-bit limb product columns (one broadcasted
-    (L, L, *batch) int64 product), L Montgomery rounds on 16-bit digits
-    (``spec.n0inv``), then 32-bit word normalization and one conditional
-    subtract.  Columns stay below 2^40, so int64 never overflows."""
+    """Plain twin of K1: products of a's 32-bit words with b's 16-bit limbs
+    (one broadcasted (W, 2W, *batch) int64 product, each below 2^48) summed
+    into 16-bit columns, L Montgomery rounds on 16-bit digits
+    (``spec.n0inv``), each adding the digit times p's 32-bit words, then
+    32-bit word normalization and one conditional subtract.  Columns stay
+    below 2^53, so int64 never overflows."""
     a, b = torch.broadcast_tensors(a, b)
-    L = f.L
+    W = a.shape[0]
+    L = 2 * W
     batch = a.shape[1:]
-
-    def limbs16(t):
-        w = widen(t)
-        return torch.stack([w & 0xFFFF, w >> 16], dim=1).reshape(L, *batch)
-
-    prod = limbs16(a)[:, None] * limbs16(b)[None, :]  # (L, L, *batch) < 2^32
+    wb = widen(b)
+    b16 = torch.stack([wb & 0xFFFF, wb >> 16], dim=1).reshape(L, *batch)
+    prod = widen(a)[:, None] * b16[None, :]  # (W, L, *batch) < 2^48
     cols = torch.zeros((2 * L + 1, *batch), dtype=torch.int64, device=a.device)
-    cols.index_add_(0, _antidiag(L, a.device), prod.reshape(L * L, *batch))
-    p16 = _consts(f, a.device)["p16"].reshape((L,) + (1,) * len(batch))
+    cols.index_add_(0, _columns(W, a.device), prod.reshape(W * L, *batch))
+    p32 = _consts(f, a.device)["p"].reshape((W,) + (1,) * len(batch))
     n0 = int(f.n0inv)
     for i in range(L):
-        m = (cols[i] * n0) & 0xFFFF
-        cols[i:i + L] += m * p16
+        m = ((cols[i] & 0xFFFF) * n0) & 0xFFFF
+        cols[i:i + L:2] += m * p32  # digit m at 2^(16 i) times p's words
         cols[i + 1] += cols[i] >> 16  # low 16 bits of cols[i] are now zero
-    hi = cols[L:2 * L]
-    words, c = ripple(hi[0::2] + (hi[1::2] << 16))
-    return csub_p(f, words, cols[2 * L] + c)
+    # the high columns as 16-bit limbs plus one carry each, then 32-bit words
+    hi = cols[L:]
+    lo, carry = hi & 0xFFFF, hi >> 16
+    limbs16 = torch.cat([lo[:1], lo[1:L] + carry[:L - 1]])
+    words, c = ripple(limbs16[0::2] + (limbs16[1::2] << 16))
+    return csub_p(f, words, hi[L] + carry[L - 1] + c)
 
 
 def mul(f: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -38,8 +38,6 @@ def _consts(f: FieldSpec, device: torch.device) -> dict:
         "one": narrow(words(f.R_mod_p)),     # mont(1), (W,) int32
         "r2": narrow(words(f.R2_mod_p)),     # mont(R), (W,) int32
         "plain_one": narrow(words(1)),       # the integer 1, (W,) int32
-        "p16": torch.tensor([int(v) for v in f.p_limbs], dtype=torch.int64,
-                            device=device),  # (L,) 16-bit limbs of p
     }
 
 

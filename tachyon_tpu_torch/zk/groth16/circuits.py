@@ -1,0 +1,44 @@
+"""Native R1CS circuits for the Groth16 tests, fixture and smoke run.
+
+Each function takes the R1CS class to fill (the port's by default; the JAX
+package's has the same ``new_private``/``constrain`` surface), and returns
+the circuit with a satisfying witness split into (public, private).
+"""
+from __future__ import annotations
+
+from tachyon_tpu_torch.math import pairing_bn254 as pairing
+from tachyon_tpu_torch.zk.groth16.r1cs import R1CS
+
+
+def mul_circuit(r1cs_cls=R1CS, x: int = 3, y: int = 7):
+    """x * y = z with z public, and the linear (x + y) * 1 = s that uses
+    ONE: w = (1, z, x, y, s)."""
+    r1cs = r1cs_cls(num_public=1)
+    vx, vy = r1cs.new_private(), r1cs.new_private()
+    r1cs.constrain({vx: 1}, {vy: 1}, {1: 1})
+    vs = r1cs.new_private()
+    r1cs.constrain({vx: 1, vy: 1}, {0: 1}, {vs: 1})
+    return r1cs, [x * y], [x, y, x + y]
+
+
+def square_chain(m: int, x0: int, r1cs_cls=R1CS):
+    """m >= 4 constraints over BN254's scalar field: the chain
+    x_{i+1} = x_i * x_i from x_0 for m - 2 squarings, whose last product is
+    the public output z, and two linear constraints that use ONE,
+    (x_0 + x_1) * 1 = s_0 and (z + 2 x_0) * 1 = s_1.  Variables: ONE, z,
+    x_0 .. x_{m-3}, s_0, s_1 (m + 2 in all, m of them private)."""
+    if m < 4:
+        raise ValueError(f"a chain of {m} constraints is too short (at least 4)")
+    r = pairing.R
+    r1cs = r1cs_cls(num_public=1)
+    xs = [r1cs.new_private() for _ in range(m - 2)] + [1]  # x_{m-2} is z
+    s0, s1 = r1cs.new_private(), r1cs.new_private()
+    for i in range(m - 2):
+        r1cs.constrain({xs[i]: 1}, {xs[i]: 1}, {xs[i + 1]: 1})
+    r1cs.constrain({xs[0]: 1, xs[1]: 1}, {0: 1}, {s0: 1})
+    r1cs.constrain({1: 1, xs[0]: 2}, {0: 1}, {s1: 1})
+    vals = [x0 % r]
+    for _ in range(m - 2):
+        vals.append(vals[-1] * vals[-1] % r)
+    z = vals[-1]
+    return r1cs, [z], vals[:-1] + [(vals[0] + vals[1]) % r, (z + 2 * vals[0]) % r]
