@@ -58,13 +58,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    curves, and the G2 MSM alone at n = 2^18 (256 exact multiples of the G2
    generator, tiled) equals the host point; with peak memory and the
    kernels' launch counts;
-7. prints the card's line, the kernels' JSON line, then the result line
+7. circom: the circom Groth16 pipeline at a 2^18 domain.  A snarkjs-layout
+   key and witness of square_chain(2^18 - 2) and its two public-input
+   constraints, from seeded secrets, are written to a temporary directory
+   by scripts/circom_key.py (timed apart: not the user's path); then
+   parse_zkey, parse_wtns, CircomGroth16Prover(...), prove at fixed r and s
+   (the witness map and each MSM timed by CUDA events) and verify.  The
+   proof verifies and fails for the output + 1, and the deterministic proof
+   verifies (scripts/profile_msm_torch.py traces this prove for the
+   device's idle share); at 2^12, on bits_chain (linear combinations of 1,
+   3, 5 and 254 terms, as a circom bit decomposition has), a repeat gives
+   the same tuple, a wrong witness's proof fails and the tuple equals the
+   native prover's on the same setup; with peak memory and launch counts;
+8. prints the card's line, the kernels' JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", ...}} last.
 
-Each main path (4, 5 and 6) runs with every launch count set to 0 just
+Each main path (4, 5, 6 and 7) runs with every launch count set to 0 just
 before it, and fails if a kernel of that path (MSM_PATH, KZG_PATH,
-GROTH16_PATH) was launched no time.  Phase 3 also holds K5 at the Groth16
-path's (65, 8, 4096) and K6 at its (32, 8, 512).  Imports no JAX and
+GROTH16_PATH, CIRCOM_PATH) was launched no time.  Phase 3 also holds, at
+the 2^18 paths' shapes (c = 14), K5 at the Groth16 path's (65, 8, 4096)
+and the circom path's (64, 8, 4096), K6 at their (32, 8, 512), the bucket
+kernel on T rows (64, 8, 4096) and (65, 8, 4096) with 2^14 buckets into
+(32, 8, 512), and Horner at 19 windows of 14 bits.  Imports no JAX and
 nothing of the JAX package: the port is torch-only.
 """
 from __future__ import annotations
@@ -74,6 +89,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from pathlib import Path
@@ -81,20 +97,24 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from scripts import circom_key
 from tachyon_tpu_torch.crypto import kzg, pedersen
 from tachyon_tpu_torch.fields import limbs, presets
+from tachyon_tpu_torch.io.zkey import parse_wtns, parse_zkey
 from tachyon_tpu_torch.math import curves, host_ec
 from tachyon_tpu_torch.math.ec import AffinePoint, PointXYZZ
 from tachyon_tpu_torch.math.msm import _blind_points, _bcast, msm, optimal_window_bits
 from tachyon_tpu_torch.math.ntt import Radix2Domain
 from tachyon_tpu_torch.ops import _build, cuda_ec, cuda_mont, cuda_msm, mont
-from tachyon_tpu_torch.zk.groth16 import circuits, r1cs
+from tachyon_tpu_torch.zk.groth16 import circuits, prover, r1cs
 
 LOG_N = 22      # the MSM path
 KZG_LOG_N = 20  # the KZG path
 KZG_SAMPLES = 64  # SRS points checked against host ints, of each kind
 GROTH16_LOG_N = 18  # the Groth16 path: 2^18 constraints, a domain of 2^18
 GROTH16_SAMPLES = 64  # a_query and b2_query points checked on their curves
+CIRCOM_LOG_N = 18  # the circom path: a domain of 2^18 (square chain + public-input constraints)
+CIRCOM_CHECK_LOG_N = 12  # the circom checks against a repeat, a wrong witness, the native prover
 SEED = 42
 # shapes the kernels are checked at: those the 2^22 MSM (c = 17) and the
 # 2^20 KZG setup give them
@@ -119,6 +139,11 @@ SIZES = {
     "scan": (4096, 512),    # lane scan widths: C for n >= 2^15 (both paths), and below
     "fold": 512,            # lane fold width C2
     "bucket": (1 << 17, 512),  # the bucket kernel's B = 2^c and C2, on K5's (R, C)
+    # the 2^18 paths' (c = 14): the bucket kernel's (R, B, C2) on T rows from
+    # K5's (64, 8, 4096) (circom, n <= 2^18) and (65, 8, 4096) (Groth16,
+    # 2^18 + 2 points); Horner's windows and c
+    "bucket_2^18": ((64, 1 << 14, 512), (65, 1 << 14, 512)),
+    "horner_2^18": (19, 14),
 }
 K5_SMALL_S = (1, 2, 4, 8)  # segment counts timed beside the one K5 picks there
 K6_S = (1, 2, 4, 8, 16, 32, 64)  # K6 segment counts timed (64 at R = 256 only)
@@ -314,7 +339,7 @@ def check(name, got, want, kernel_ms, plain_ms, shape, plain_shape, work, result
     """Hold a kernel's output against its twin's; record the first (main
     path) shape's numbers.  work = (bytes, word products, clock in Hz); the
     field multiplies per second are the products' multiplies over the
-    kernel's time."""
+    kernel's time.  Returns this shape's numbers."""
     err = word_err(got, want)
     bms, by = bound_ms(*work)
     rate = work[1] / WORD_PRODUCTS / (kernel_ms / 1e3)
@@ -323,9 +348,10 @@ def check(name, got, want, kernel_ms, plain_ms, shape, plain_shape, work, result
         f"{work[0]} bytes, {work[1]} word products); {rate:.4g} field multiplies per s")
     if err != 0:
         raise AssertionError(f"{name}: kernel disagrees with its plain twin (max_abs_err {err})")
-    results.setdefault(name, {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-                              "bound_ms": bms, "bound_by": by, "shape": shape,
-                              "plain_shape": plain_shape, "fmul_per_s": rate})
+    rec = {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bms,
+           "bound_by": by, "shape": shape, "plain_shape": plain_shape, "fmul_per_s": rate}
+    results.setdefault(name, rec)
+    return rec
 
 
 def row_tiled(base_x, base_y, R: int, C: int, fixed: int = 0):
@@ -444,12 +470,12 @@ def horner_loop(f, wins, c: int):
     return acc
 
 
-def horner_check(curve, clock_hz, results) -> None:
-    """The Horner kernel on the 2^22 MSM's windows and c, word for word
-    against its twin and the loop of K3 and K2 launches it replaces, its
-    result against the host's point, timed beside that loop."""
+def horner_check(curve, clock_hz, results, nwin: int, c: int) -> dict:
+    """The Horner kernel on nwin windows of c bits, word for word against
+    its twin and the loop of K3 and K2 launches it replaces, its result
+    against the host's point, timed beside that loop.  Returns check's
+    numbers with the loop's time and the chain's length."""
     f = curve.F.spec
-    nwin, c = SIZES["horner"]
     wins, want_aff, muls = horner_windows(curve, nwin, c, SEED)
     got = cuda_ec.horner(f, wins, c)
     want, plain_ms = timed_once(lambda: cuda_ec.horner_plain(f, wins, c))
@@ -465,10 +491,10 @@ def horner_check(curve, clock_hz, results) -> None:
         f"and {nwin} K2 launches it replaces {loop_ms:.4f} ms; operations bound "
         f"{bound_ms(*work)[0]:.6f} ms; the floor is a serial chain of {c * nwin} doublings "
         f"and {nwin} adds: {muls} field multiplies in a row, {ms * 1e6 / muls:.1f} ns each")
-    results["horner_loop_ms"] = loop_ms
-    results["horner_chain"] = {"doublings": c * nwin, "adds": nwin, "field_multiplies": muls}
-    check("horner", got, want, ms, plain_ms, f"4 x (8, {nwin}), c = {c}",
-          f"4 x (8, {nwin}), c = {c}", work, results)
+    rec = check("horner", got, want, ms, plain_ms, f"4 x (8, {nwin}), c = {c}",
+                f"4 x (8, {nwin}), c = {c}", work, results)
+    return {**rec, "k3_k2_loop_ms": loop_ms,
+            "chain": {"doublings": c * nwin, "adds": nwin, "field_multiplies": muls}}
 
 
 def lifted(f, x, y, lam):
@@ -548,7 +574,10 @@ def phase_kernels(device, base_x, base_y, clock_hz, results):
           cuda_ms(lambda: cuda_ec.dbl_xyzz_plain(fq, d_in), 2), f"4 x (8, {n3})",
           f"4 x (8, {n3})", (8 * 32 * n3, WORD_PRODUCTS * 9 * live3, clock_hz), results)
 
-    horner_check(curve, clock_hz, results)
+    # Horner at the 2^22 MSM's windows and c (recorded), then the 2^18 paths'
+    main = horner_check(curve, clock_hz, results, *SIZES["horner"])
+    results["horner_loop_ms"], results["horner_chain"] = main["k3_k2_loop_ms"], main["chain"]
+    results["horner_2^18"] = horner_check(curve, clock_hz, results, *SIZES["horner_2^18"])
 
     # K4 on 2^20 lanes (scalar_mul's width in the KZG setup): P lifted with
     # zz != 1; lanes by lane % 7: 1 P = Q, 2 P = -Q, 3 p = inf, 4 q = inf,
@@ -678,7 +707,14 @@ def phase_kernels(device, base_x, base_y, clock_hz, results):
     for C in SIZES["scan"]:
         lane_check(fq, "lane_suffix_scan", suf, C, tuple(nd1), g, clock_hz, results)
     lane_check(fq, "lane_fold", suf, SIZES["fold"], tuple(nd2), g, clock_hz, results)
-    bucket_check(fq, suf, g, clock_hz, results)
+    # the bucket kernel at the 2^22 window's shapes (recorded), then at the
+    # 2^18 paths' on T rows cut from the same suffix sums
+    results["bucket_add_info"] = bucket_check(fq, suf, g, clock_hz, results,
+                                              *SIZES["bucket"])[1]
+    results["bucket_add_2^18"] = [
+        {**rec, **info} for rec, info in
+        (bucket_check(fq, tuple(x[:R] for x in suf), g, clock_hz, results, B, C2)
+         for R, B, C2 in SIZES["bucket_2^18"])]
 
 
 def k6_rows(suf, R: int, C: int, L: int, g):
@@ -918,14 +954,13 @@ def add_muls(f, p, q) -> tuple[int, dict]:
     return 14 * cases["generic"] + 13 * cases["doubles"] + 4 * cases["cancels"], cases
 
 
-def bucket_inputs(f, suf, g):
-    """The bucket kernel's inputs at the 2^22 window's shapes: T, a copy of
-    K5's suffix sums (R, W, C); W'' from row 5's lanes; pos, the bucket
+def bucket_inputs(f, suf, g, B: int):
+    """The bucket kernel's inputs for B buckets: T, a copy of K5's suffix
+    sums (R, W, C); W'' from row 5's lanes; pos, the bucket
     starts of R C sorted digits below B - 64 (the top 63 digits absent:
     pos = R C).  At the first bucket of lane c (row r), by c % 64: 1
     W''[c] = T[r, c] (P = Q), 2 W''[c] = -T[r, c] (P = -Q), 3 W''[c] at
     infinity (every bucket of the lane), 4 T[r, c] at infinity, 5 both."""
-    B, _ = SIZES["bucket"]
     R, W, C = suf[0].shape
     t = tuple(x.clone() for x in suf)
     wpp = [x[5].clone() for x in suf]
@@ -963,14 +998,14 @@ def bucket_k2_path(f, t, wpp, pos, C2: int):
                  .permute(1, 0, 2).contiguous() for x in tv)
 
 
-def bucket_check(f, suf, g, clock_hz, results) -> None:
-    """The bucket kernel at the 2^22 window's shapes, word for word against
-    its plain twin and the gathers, K2 launch and glue it replaces, timed beside
-    them; its bound, and the 32-byte sectors its loads touch beside the
-    bytes the function needs."""
-    B, C2 = SIZES["bucket"]
+def bucket_check(f, suf, g, clock_hz, results, B: int, C2: int) -> tuple[dict, dict]:
+    """The bucket kernel for B buckets from K5's rows ``suf`` into rows of
+    C2 lanes, word for word against its plain twin and the gathers, K2
+    launch and glue it replaces, timed beside them; its bound, and the
+    32-byte sectors its loads touch beside the bytes the function needs.
+    Returns check's numbers and the rest."""
     R, W, C = suf[0].shape
-    t, wpp, pos = bucket_inputs(f, suf, g)
+    t, wpp, pos = bucket_inputs(f, suf, g, B)
     got = cuda_msm.bucket_add(f, t, wpp, pos, C2)
     want, plain_ms = timed_once(lambda: cuda_msm.bucket_add_plain(f, t, wpp, pos, C2))
     if word_err(got, bucket_k2_path(f, t, wpp, pos, C2)) != 0:
@@ -1004,12 +1039,10 @@ def bucket_check(f, suf, g, clock_hz, results) -> None:
         f"launch {ms:.4f} ms, the gathers, K2 and glue it replaces {k2_path_ms:.4f} ms; cases "
         f"{cases}, {int((~valid).sum())} absent digits; {nbytes} bytes needed, the loads touch "
         f"{sectors} 32-byte sectors ({32 * sum(sectors.values())} bytes)")
-    results["bucket_add_info"] = {"k2_path_ms": k2_path_ms, "cases": cases, "sectors": sectors,
-                                  "sector_bytes": 32 * sum(sectors.values())}
-    check("bucket_add", got, want, ms, plain_ms,
-          f"4 x ({R}, {W}, {C}) + 4 x ({W}, {C}) + ({B - 1},) -> 4 x ({B // C2}, {W}, {C2})",
-          f"4 x ({R}, {W}, {C}) + 4 x ({W}, {C}) + ({B - 1},) -> 4 x ({B // C2}, {W}, {C2})",
-          work, results)
+    shape = f"4 x ({R}, {W}, {C}) + 4 x ({W}, {C}) + ({B - 1},) -> 4 x ({B // C2}, {W}, {C2})"
+    rec = check("bucket_add", got, want, ms, plain_ms, shape, shape, work, results)
+    return rec, {"k2_path_ms": k2_path_ms, "cases": cases, "sectors": sectors,
+                 "sector_bytes": 32 * sum(sectors.values())}
 
 
 def slice_inputs(curve, n: int):
@@ -1274,7 +1307,7 @@ def g2_msm_check(device) -> dict:
     wall_s = time.perf_counter() - t0
     if aff.x.shape != (2, g2.F.base.W) or not bool(g2.is_on_curve(aff)):
         raise AssertionError("G2 MSM result malformed or off the curve")
-    got = r1cs._host_points(g2, AffinePoint(aff.x[..., None], aff.y[..., None], aff.inf[None]))
+    got = r1cs.host_points(g2, AffinePoint(aff.x[..., None], aff.y[..., None], aff.inf[None]))
     if got[0] != expected:
         raise AssertionError(f"G2 MSM at 2^{GROTH16_LOG_N}: {got[0]} != host {expected}")
     return {"n": n, "ms": round(ms, 4), "wall_s": round(wall_s, 4), "host_expected_s": round(host_s, 4)}
@@ -1349,6 +1382,115 @@ def phase_groth16(device):
         f"circuit_s={circuit_s:.3f} checks_s={checks_s:.3f} peak_mem_bytes={peak} "
         f"steps={json.dumps(steps)} prove_steps={json.dumps(prove_steps)} "
         f"g2_msm={json.dumps(g2_alone)} launches={json.dumps(launches)}")
+    return launches
+
+
+# the circom prove: four G1 MSMs above 128 points (A, C, H, and B1 at
+# nonzero r and s), the G2 MSM on the generic path (K1 for every base
+# multiply), the parse's coefficient normalisation and the witness map's
+# products and NTTs (K1); no naive MSM (no K2), no ladder (the key writer's
+# setup runs before the counts are set to 0)
+CIRCOM_PATH = ("mont_mul", "suffix_sweep", "bucket_add", "reduce_sweep", "lane_suffix_scan",
+               "lane_fold", "horner")
+CIRCOM_G1_MSMS = 4
+
+
+def circom_case(log_n: int, seed: int, circuit_fn=circuits.square_chain):
+    """``circuit_fn``(2^log_n - 2, x_0) (square_chain or bits_chain), which
+    its two public-input constraints bring to a domain of 2^log_n, with its
+    witness, secrets, r and s from ``seed``."""
+    R = r1cs.pairing.R
+    rng = np.random.default_rng(seed)
+    x0, r, s, *secrets = (int.from_bytes(rng.bytes(40), "little") % (R - 1) + 1
+                          for _ in range(8))
+    circuit, public, private = circuit_fn((1 << log_n) - 2, x0)
+    return circuit, public, private, secrets, r, s
+
+
+def write_circom_key(tmp: Path, log_n: int, seed: int, device,
+                     circuit_fn=circuits.square_chain):
+    """Write the key and witness of ``circom_case``; returns the case, the
+    native params, the two paths and the writer's seconds."""
+    circuit, public, private, secrets, r, s = circom_case(log_n, seed, circuit_fn)
+    zpath, wpath = tmp / f"chain_{log_n}.zkey", tmp / f"chain_{log_n}.wtns"
+    t0 = time.perf_counter()
+    pp = circom_key.write_zkey(zpath, circuit, secrets, device)
+    circom_key.write_wtns(wpath, [1] + public + private)
+    return (public, private, r, s), pp, zpath, wpath, time.perf_counter() - t0
+
+
+def phase_circom(device):
+    """The circom Groth16 pipeline at a 2^18 domain through the port's entry
+    points (parse_zkey, parse_wtns, CircomGroth16Prover, prove at fixed r
+    and s, verify) on a key written from known secrets, each step timed and
+    the proof checked; then the checks at 2^12.  Returns its launches."""
+    R = r1cs.pairing.R
+    steps, prove_steps = {}, {}
+    step = cuda_timer(steps)
+    with tempfile.TemporaryDirectory() as tmp:
+        (public, private, r, s), _, zpath, wpath, writer_s = write_circom_key(
+            Path(tmp), CIRCOM_LOG_N, SEED + 4, device)
+        key_bytes = zpath.stat().st_size
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with step("parse_zkey"):
+            zkey = parse_zkey(str(zpath), device)
+        with step("parse_wtns"):
+            _, wtns = parse_wtns(str(wpath))
+        with step("init"):
+            pr = prover.CircomGroth16Prover(zkey, device)
+        with step("prove"):
+            proof = pr.prove(wtns, r=r, s=s, timer=cuda_timer(prove_steps))
+        with step("verify"):
+            ok = pr.verify(proof, public)
+        launches = read_launches(CIRCOM_PATH)
+        peak = torch.cuda.max_memory_allocated()
+    if launches["horner"] != CIRCOM_G1_MSMS or launches["add_xyzz"] != 0 \
+            or launches["scalar_mul_xyzz"] != 0:
+        raise AssertionError(f"the circom path launched Horner {launches['horner']} times, K2 "
+                             f"{launches['add_xyzz']} and the ladder "
+                             f"{launches['scalar_mul_xyzz']}, not {CIRCOM_G1_MSMS}, 0 and 0")
+    if prover.public_inputs(zkey, wtns) != public or zkey.domain_size != 1 << CIRCOM_LOG_N:
+        raise AssertionError("circom: the parsed key or witness is not the written one")
+    if ok is not True or pr.verify(proof, [(public[0] + 1) % R]) is not False:
+        raise AssertionError("circom: the proof does not verify, or verifies for output + 1")
+    t0 = time.perf_counter()
+    det = pr.prove(wtns, deterministic=True)
+    det_s = time.perf_counter() - t0
+    if pr.verify(det, public) is not True:
+        raise AssertionError("circom: the deterministic proof does not verify")
+    del pr, zkey, wtns
+    torch.cuda.empty_cache()
+
+    # at 2^12, on the bit chain (segments of 1, 3, 5 and 254 terms): a
+    # repeat, a wrong witness, the native prover on the same setup
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        (pub2, priv2, r2, s2), pp, zpath, wpath, _ = write_circom_key(
+            Path(tmp), CIRCOM_CHECK_LOG_N, SEED + 5, device, circuits.bits_chain)
+        small = prover.CircomGroth16Prover(parse_zkey(str(zpath), device), device)
+        _, w2 = parse_wtns(str(wpath))
+    got = small.prove(w2, r=r2, s=s2)
+    if small.verify(got, pub2) is not True or small.prove(w2, r=r2, s=s2) != got:
+        raise AssertionError(f"circom at 2^{CIRCOM_CHECK_LOG_N}: the proof does not verify, "
+                             "or a repeat gives another tuple")
+    bad = w2.clone()
+    bad[:, 2] = limbs.from_ints([priv2[0] + 1], w2.shape[0])[:, 0]  # b_0 + 1: the bit sum breaks
+    if small.verify(small.prove(bad, r=r2, s=s2), pub2) is not False:
+        raise AssertionError(f"circom at 2^{CIRCOM_CHECK_LOG_N}: a wrong witness's proof verifies")
+    native = r1cs.Groth16(pp, device).prove(pub2, priv2, r=r2, s=s2)
+    if tuple(native) != tuple(got):
+        raise AssertionError(f"circom at 2^{CIRCOM_CHECK_LOG_N}: the tuple differs from the "
+                             "native prover's on the same setup")
+    checks_s = time.perf_counter() - t0
+    log(f"[circom] bn254 domain=2^{CIRCOM_LOG_N} vars={len(public) + len(private) + 1} "
+        f"verified=True writer_s={writer_s:.3f} key_bytes={key_bytes} "
+        f"checks_2^{CIRCOM_CHECK_LOG_N}_s={checks_s:.3f} peak_mem_bytes={peak} "
+        f"steps={json.dumps(steps)} prove_steps={json.dumps(prove_steps)} "
+        f"deterministic_prove_s={det_s:.4f} "
+        f"launches={json.dumps(launches)}")
     return launches
 
 
@@ -1444,25 +1586,36 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     _, base_x, base_y = base_points(curves.bn254_g1(device), rng)
     results: dict = {}
-    phase_kernels(device, base_x, base_y, clock_hz, results)
-    torch.cuda.empty_cache()
-    msm_launches = phase_slice(device)
-    torch.cuda.empty_cache()
-    kzg_launches = phase_kzg(device)
-    torch.cuda.empty_cache()
-    groth16_launches = phase_groth16(device)
+    phase_s = {}
+
+    def phase(name, fn, *args):
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        out = fn(device, *args)
+        phase_s[name] = round(time.perf_counter() - t1, 1)
+        return out
+
+    phase("kernels", phase_kernels, base_x, base_y, clock_hz, results)
+    msm_launches = phase("msm", phase_slice)
+    kzg_launches = phase("kzg", phase_kzg)
+    groth16_launches = phase("groth16", phase_groth16)
+    circom_launches = phase("circom", phase_circom)
+    log(f"[phases] seconds {json.dumps(phase_s)}, since the build started "
+        f"{time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, (_, source, replaces) in KERNELS.items():
         r = results[name]
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                 "launches": msm_launches[name] + kzg_launches[name] + groth16_launches[name],
+                 "launches": (msm_launches[name] + kzg_launches[name] + groth16_launches[name]
+                              + circom_launches[name]),
                  "max_abs_err": r["max_abs_err"],
                  "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": None, "fmul_per_s": r["fmul_per_s"],
                  "launches_by_path": {f"msm_2^{LOG_N}": msm_launches[name],
                                       f"kzg_2^{KZG_LOG_N}": kzg_launches[name],
-                                      f"groth16_2^{GROTH16_LOG_N}": groth16_launches[name]},
+                                      f"groth16_2^{GROTH16_LOG_N}": groth16_launches[name],
+                                      f"circom_2^{CIRCOM_LOG_N}": circom_launches[name]},
                  "shape": r["shape"], "plain_shape": r["plain_shape"]}
         if name in ALSO_REPLACES:
             entry["also_replaces"] = ALSO_REPLACES[name]
@@ -1475,11 +1628,13 @@ def main() -> int:
         if name == "horner":
             entry["k3_k2_loop_ms"] = results["horner_loop_ms"]
             entry["chain"] = results["horner_chain"]
+            entry["shapes_2^18"] = [results["horner_2^18"]]
         if name == "add_xyzz":
             entry["ms_by_width"] = results["add_xyzz_by_width"]
             entry["registers"] = regs.get("add_xyzz_kernel")
         if name == "bucket_add":
             entry.update(results["bucket_add_info"])
+            entry["shapes_2^18"] = results["bucket_add_2^18"]
             entry["registers"] = regs.get("bucket_add_kernel")
         if f"{name}_k2_path_ms" in results:
             entry["k2_path_ms"] = results[f"{name}_k2_path_ms"]

@@ -2,25 +2,29 @@
 """Profile the PyTorch/CUDA port's BN254 paths on one GPU with torch.profiler.
 
     python3 scripts/profile_msm_torch.py [--log-n 22] [--kzg-log-n 20]
-        [--groth16-log-n 18] [--out DIR]
+        [--groth16-log-n 18] [--circom-log-n 18] [--out DIR]
 
 Builds the kernels, then traces, each after one warm-up run:
 - the G1 MSM (msm + to_affine) on chip_smoke.py's 2^log_n point set;
 - the KZG unsafe setup at 2^kzg_log_n;
 - one KZG commit (msm + to_affine) of 2^kzg_log_n coefficients;
 - one Groth16 prove (at fixed r and s) on chip_smoke.py's square chain of
-  2^groth16_log_n constraints, after its setup (0 skips it).
+  2^groth16_log_n constraints, after its setup (0 skips it);
+- one circom Groth16 prove (at fixed r and s) on chip_smoke.py's key of a
+  2^circom_log_n domain, written to a temporary directory, parsed and
+  loaded into CircomGroth16Prover (0 skips it).
 For each it prints the device time by kernel name and the device busy and
 idle shares of the traced window, and writes the Chrome trace to
-<out>/<name>_trace.json; the prove's G2 MSM launches millions of small
-kernels (the generic path), so its trace records the device activity only
-and is not written.  Needs CUDA; imports no JAX.
+<out>/<name>_trace.json; the proves' G2 MSM launches millions of small
+kernels (the generic path), so their traces record the device activity
+only and are not written.  Needs CUDA; imports no JAX.
 """
 from __future__ import annotations
 
 import argparse
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -30,10 +34,19 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import chip_smoke  # noqa: E402
 from tachyon_tpu_torch.crypto import kzg  # noqa: E402
+from tachyon_tpu_torch.io.zkey import parse_wtns, parse_zkey  # noqa: E402
 from tachyon_tpu_torch.math import curves  # noqa: E402
 from tachyon_tpu_torch.math.msm import msm  # noqa: E402
 from tachyon_tpu_torch.ops import _build  # noqa: E402
-from tachyon_tpu_torch.zk.groth16 import circuits, r1cs  # noqa: E402
+from tachyon_tpu_torch.zk.groth16 import circuits, prover, r1cs  # noqa: E402
+
+
+def device_events(prof) -> list:
+    """(name, ns) of every device activity a ``torch.profiler`` pass
+    recorded, from its raw results: ``key_averages`` builds a Python event
+    per activity and takes minutes over the ~2M of a G2 MSM."""
+    return [(e.name(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA]
 
 
 def profile(name: str, run, out: Path, host: bool = True) -> None:
@@ -49,10 +62,11 @@ def profile(name: str, run, out: Path, host: bool = True) -> None:
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    dev = sorted(((e.key, e.device_time_total, e.count) for e in events
-                  if e.device_time_total > 0 and e.device_type == torch.autograd.DeviceType.CUDA),
-                 key=lambda t: -t[1])
+    by_name = {}
+    for key, ns in device_events(prof):
+        us, cnt = by_name.get(key, (0.0, 0))
+        by_name[key] = (us + ns / 1e3, cnt + 1)
+    dev = sorted(((k, us, cnt) for k, (us, cnt) in by_name.items()), key=lambda t: -t[1])
     busy_us = sum(t for _, t, _ in dev)
     print(f"[profile] {name} wall_s={wall:.4f} device_busy_s={busy_us / 1e6:.4f} "
           f"idle_share={1 - busy_us / 1e6 / wall:.3f} launches={sum(c for _, _, c in dev)}")
@@ -62,7 +76,7 @@ def profile(name: str, run, out: Path, host: bool = True) -> None:
         return
     out.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(out / f"{name}_trace.json"))
-    cpu = sorted(events, key=lambda e: -e.self_cpu_time_total)[:10]
+    cpu = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:10]
     for e in cpu:
         print(f"[host-op] {e.self_cpu_time_total / 1e3:10.3f} ms self x{e.count:<6d} {e.key[:70]}")
 
@@ -72,6 +86,7 @@ def main() -> int:
     ap.add_argument("--log-n", type=int, default=22)
     ap.add_argument("--kzg-log-n", type=int, default=20)
     ap.add_argument("--groth16-log-n", type=int, default=18)
+    ap.add_argument("--circom-log-n", type=int, default=18)
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -108,6 +123,19 @@ def main() -> int:
         print(f"[groth16] setup + Groth16(...) {time.perf_counter() - t0:.2f} s")
         profile(f"groth16_prove_2^{args.groth16_log_n}",
                 lambda: g16.prove(public, private, r=rr - 5, s=rr - 7), out, host=False)
+        del g16
+        torch.cuda.empty_cache()
+    if args.circom_log_n:
+        with tempfile.TemporaryDirectory() as tmp:
+            (_, _, r, s), _, zpath, wpath, writer_s = chip_smoke.write_circom_key(
+                Path(tmp), args.circom_log_n, chip_smoke.SEED + 4, device)
+            t0 = time.perf_counter()
+            pr = prover.CircomGroth16Prover(parse_zkey(str(zpath), device), device)
+            _, wtns = parse_wtns(str(wpath))
+        print(f"[circom] writer {writer_s:.2f} s, parse + CircomGroth16Prover(...) "
+              f"{time.perf_counter() - t0:.2f} s")
+        profile(f"circom_prove_2^{args.circom_log_n}",
+                lambda: pr.prove(wtns, r=r, s=s), out, host=False)
     return 0
 
 

@@ -42,3 +42,33 @@ def square_chain(m: int, x0: int, r1cs_cls=R1CS):
         vals.append(vals[-1] * vals[-1] % r)
     z = vals[-1]
     return r1cs, [z], vals[:-1] + [(vals[0] + vals[1]) % r, (z + 2 * vals[0]) % r]
+
+
+def bits_chain(m: int, x0: int, r1cs_cls=R1CS):
+    """m >= 257 constraints with the long linear combinations of a circom
+    bit decomposition: the bits b_i of x_0 (b_i * b_i = b_i, one constraint
+    each, as many as r has bits), their sum (sum_i 2^i b_i) * 1 = x_0 (an A
+    row of 254 terms), t = (b_0 + b_1 + b_2) * (b_3 + .. + b_7) (rows of 3
+    and 5 terms), then square_chain's x_{i+1} = x_i * x_i for the other
+    constraints, whose last product is the public output z.  Variables:
+    ONE, z, b_0 .. b_253, t, x_0 .. x_{m-257} (m + 1 in all)."""
+    r = pairing.R
+    nbits = r.bit_length()
+    k = m - nbits - 2  # squarings
+    if k < 1:
+        raise ValueError(f"a bit chain of {m} constraints is too short (at least {nbits + 3})")
+    r1cs = r1cs_cls(num_public=1)
+    bs = [r1cs.new_private() for _ in range(nbits)]
+    vt = r1cs.new_private()
+    xs = [r1cs.new_private() for _ in range(k)] + [1]  # x_k is z
+    for b in bs:
+        r1cs.constrain({b: 1}, {b: 1}, {b: 1})
+    r1cs.constrain({b: 1 << i for i, b in enumerate(bs)}, {0: 1}, {xs[0]: 1})
+    r1cs.constrain({b: 1 for b in bs[:3]}, {b: 1 for b in bs[3:8]}, {vt: 1})
+    for i in range(k):
+        r1cs.constrain({xs[i]: 1}, {xs[i]: 1}, {xs[i + 1]: 1})
+    bits = [(x0 % r) >> i & 1 for i in range(nbits)]
+    vals = [x0 % r]
+    for _ in range(k):
+        vals.append(vals[-1] * vals[-1] % r)
+    return r1cs, [vals[-1]], bits + [sum(bits[:3]) * sum(bits[3:8])] + vals[:-1]

@@ -37,7 +37,7 @@ import torch
 from tachyon_tpu_torch.fields import limbs
 from tachyon_tpu_torch.math import curves, host_ec
 from tachyon_tpu_torch.math import pairing_bn254 as pairing
-from tachyon_tpu_torch.math.ec import AffinePoint, SWCurve
+from tachyon_tpu_torch.math.ec import AffinePoint, PointXYZZ, SWCurve
 from tachyon_tpu_torch.math.msm import msm
 from tachyon_tpu_torch.math.ntt import Radix2Domain
 
@@ -157,7 +157,7 @@ def _lagrange_at_tau(Fr_p: int, n: int, omega: int, tau: int) -> list[int]:
     return [z_tau * w % Fr_p * d % Fr_p for w, d in zip(ws, dinv)]
 
 
-def _host_points(curve: SWCurve, aff: AffinePoint) -> list:
+def host_points(curve: SWCurve, aff: AffinePoint) -> list:
     """(..., k) affine device points -> k host points (ints, None at infinity)."""
     F = curve.F
     inf = aff.inf.reshape(-1).tolist()
@@ -170,13 +170,19 @@ def _host_points(curve: SWCurve, aff: AffinePoint) -> list:
     return [None if i else (int(x), int(y)) for x, y, i in zip(xs, ys, inf)]
 
 
+def host_point(curve: SWCurve, acc: PointXYZZ):
+    """One XYZZ device point -> its affine host point (ints, None at infinity)."""
+    aff = curve.to_affine(acc)
+    return host_points(curve, AffinePoint(aff.x[..., None], aff.y[..., None], aff.inf[None]))[0]
+
+
 def _generator_multiples(curve: SWCurve, scalars: list) -> list:
     """[s]G for every s as host points: one ``scalar_mul`` over a batch of
     the generator, one ``to_affine``, one decode."""
     SF = curve.SF
     sw = limbs.from_ints([s % SF.p for s in scalars], SF.W, curve.device)
     acc = curve.scalar_mul(curve.generator((len(scalars),)), sw)
-    return _host_points(curve, curve.to_affine(acc))
+    return host_points(curve, curve.to_affine(acc))
 
 
 def setup(r1cs: R1CS, family: str = "bn254", rng=None,
@@ -321,14 +327,11 @@ class Groth16:
         if len(query) != len(scalars):
             raise ValueError(f"{len(query)} points vs {len(scalars)} scalars")
         if len(query) <= MSM_HOST_THRESHOLD or dev_pts is None:
-            add, mul = (g2_add, g2_mul) if hasattr(curve.F, "D") else (g1_add, g1_mul)
-            acc = None
-            for pt, k in zip(query, scalars):
-                acc = add(acc, mul(pt, int(k) % pairing.R))
-            return acc
-        acc = curve.to_affine(msm(curve, dev_pts, _scalar_limbs(self.Fr, scalars)))
-        return _host_points(curve, AffinePoint(acc.x[..., None], acc.y[..., None],
-                                               acc.inf[None]))[0]
+            ks = [int(k) % pairing.R for k in scalars]
+            if hasattr(curve.F, "D"):
+                return host_ec.g2_msm(query, ks)
+            return host_ec.msm(query, ks, 0, pairing.P)
+        return host_point(curve, msm(curve, dev_pts, _scalar_limbs(self.Fr, scalars)))
 
     def prove(self, public: list[int], private: list[int], r: int | None = None,
               s: int | None = None, timer=None) -> Groth16Proof:

@@ -190,14 +190,15 @@ def test_cpu_tensors_launch_no_kernel():
 
 
 def test_port_imports_without_jax():
-    """Every port module and chip_smoke import with jax and the JAX package
+    """Every port module, chip_smoke and the circom key writer
+    (scripts/circom_key.py) import with jax and the JAX package
     (tachyon_tpu) made unimportable."""
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "tachyon_tpu_torch").rglob("*.py"))
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['tachyon_tpu'] = None\n"
-        f"import importlib\nfor m in {mods + ['chip_smoke']!r}:\n"
+        f"import importlib\nfor m in {mods + ['chip_smoke', 'scripts.circom_key']!r}:\n"
         "    importlib.import_module(m)\n"
         "assert not any(k.split('.')[0] in ('jax', 'tachyon_tpu') for k in sys.modules"
         " if sys.modules[k] is not None)\n"
@@ -206,7 +207,7 @@ def test_port_imports_without_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
-    assert len(mods) >= 28
+    assert len(mods) >= 32
 
 
 def test_msm_naive_dispatch(monkeypatch):
