@@ -70,12 +70,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    3, 5 and 254 terms, as a circom bit decomposition has), a repeat gives
    the same tuple, a wrong witness's proof fails and the tuple equals the
    native prover's on the same setup; with peak memory and launch counts;
-8. prints the card's line, the kernels' JSON line, then the result line
+8. stark: the BabyBear STARK path.  K1 at one word (W = 1) on baby_bear at
+   (1, 2^24) and with broadcast operands, word for word against its twin
+   and timed beside its bound (12 bytes an element), and on koala_bear and
+   mersenne31 edge operands, with its host cost per call at n = 1;
+   Poseidon2 (baby_bear_p3_w16) on 2^22 states, 64 sampled states equal to
+   permute_host; the pinned transcript of tests/test_fri_pinned.py on the
+   card, equal to tests/fixtures/fri_babybear_pinned.json; then the main
+   path: TwoAdicFRIPCS over 4 rounds of a 2^20 x 100 matrix made on the
+   card from SEED (log_blowup 2, 100 queries, 16 proof-of-work bits): each
+   commit, the opening at one sampled extension point, verify, each step
+   timed; the proof verifies and fails for one tampered opened value, and
+   16 sampled leaves of each round's tree, rehashed with permute_host,
+   equal its leaf digests; then the Fibonacci uni-STARK at n = 2^20 (the
+   same FRI config): prove and verify, timed; it verifies and fails for the
+   public output + 1; with peak memory and K1's launches;
+9. prints the card's line, the kernels' JSON line, then the result line
    {"ok": true, "device": {"platform": "gpu", ...}} last.
 
-Each main path (4, 5, 6 and 7) runs with every launch count set to 0 just
-before it, and fails if a kernel of that path (MSM_PATH, KZG_PATH,
-GROTH16_PATH, CIRCOM_PATH) was launched no time.  Phase 3 also holds, at
+Each main path (4, 5, 6, 7 and 8's PCS and uni-STARK runs) runs with every
+launch count set to 0 just before it, and fails if a kernel of that path
+(MSM_PATH, KZG_PATH, GROTH16_PATH, CIRCOM_PATH, STARK_PATH) was launched no
+time.  Phase 3 also holds, at
 the 2^18 paths' shapes (c = 14), K5 at the Groth16 path's (65, 8, 4096)
 and the circom path's (64, 8, 4096), K6 at their (32, 8, 512), the bucket
 kernel on T rows (64, 8, 4096) and (65, 8, 4096) with 2^14 buckets into
@@ -85,6 +101,7 @@ nothing of the JAX package: the port is torch-only.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import re
 import subprocess
@@ -97,15 +114,21 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from scripts import circom_key
-from tachyon_tpu_torch.crypto import kzg, pedersen
-from tachyon_tpu_torch.fields import limbs, presets
+from scripts import circom_key, fri_pinned
+from scripts.make_torch_stark_fixture import fib_air
+from tachyon_tpu_torch.crypto import kzg, pedersen, poseidon2
+from tachyon_tpu_torch.crypto.challenger import DuplexChallenger
+from tachyon_tpu_torch.crypto.fri import FRIConfig, TwoAdicFRIPCS
+from tachyon_tpu_torch.fields import extensions, limbs, presets
 from tachyon_tpu_torch.io.zkey import parse_wtns, parse_zkey
 from tachyon_tpu_torch.math import curves, host_ec
 from tachyon_tpu_torch.math.ec import AffinePoint, PointXYZZ
 from tachyon_tpu_torch.math.msm import _blind_points, _bcast, msm, optimal_window_bits
+from tachyon_tpu_torch.math.field import PrimeField
 from tachyon_tpu_torch.math.ntt import Radix2Domain
 from tachyon_tpu_torch.ops import _build, cuda_ec, cuda_mont, cuda_msm, mont
+from tachyon_tpu_torch.zk.air import expressions as air_expr
+from tachyon_tpu_torch.zk.air.stark import UniStark
 from tachyon_tpu_torch.zk.groth16 import circuits, prover, r1cs
 
 LOG_N = 22      # the MSM path
@@ -115,12 +138,23 @@ GROTH16_LOG_N = 18  # the Groth16 path: 2^18 constraints, a domain of 2^18
 GROTH16_SAMPLES = 64  # a_query and b2_query points checked on their curves
 CIRCOM_LOG_N = 18  # the circom path: a domain of 2^18 (square chain + public-input constraints)
 CIRCOM_CHECK_LOG_N = 12  # the circom checks against a repeat, a wrong witness, the native prover
+# the STARK path: the reference's benchmark/fri row at 2^20 (BabyBear,
+# Poseidon2, 100 columns x 4 rounds, log_blowup 2), SP1's 100 queries and 16
+# proof-of-work bits; the Fibonacci uni-STARK at the same height and config
+STARK_LOG_N = 20
+STARK_ROUNDS = 4
+STARK_COLS = 100
+STARK_FRI = (2, 100, 16)  # log_blowup, num_queries, proof_of_work_bits
+STARK_LEAVES = 16  # leaves of each round's tree rehashed on the host
+POSEIDON2_LOG_STATES = 22  # the permutation check's batch (a 2^22-row LDE's leaves)
+POSEIDON2_SAMPLES = 64
 SEED = 42
 # shapes the kernels are checked at: those the 2^22 MSM (c = 17) and the
 # 2^20 KZG setup give them
 SIZES = {
     "k1_fq": 1 << 22,       # K1 elements, BN254 Fq
     "k1_fr": 1 << 16,       # K1 elements, BN254 Fr
+    "k1_w1": 1 << 24,       # K1 elements at W = 1, BabyBear
     # K2 lanes: the widest add of the naive MSM's tree reduce (64 points),
     # then the former T-gather width 2^c - 1
     "k2": (32, (1 << 17) - 1),
@@ -162,6 +196,8 @@ K1_CALLS = 1000  # back-to-back K1 calls at n = 1 for its host cost per call
 KERNELS = {
     "mont_mul": (cuda_mont.mul, "tachyon_tpu_torch/csrc/mont_mul.cu",
                  "tachyon_tpu/ops/pallas_mont.py:90"),
+    "mont_mul_w1": (cuda_mont.mul1, "tachyon_tpu_torch/csrc/mont_mul.cu",
+                    "tachyon_tpu/ops/pallas_mont.py:90"),
     "add_xyzz": (cuda_ec.add_xyzz, "tachyon_tpu_torch/csrc/ec.cu",
                  "tachyon_tpu/ops/pallas_ec.py:209"),
     "dbl_xyzz": (cuda_ec.dbl_xyzz, "tachyon_tpu_torch/csrc/ec.cu",
@@ -273,9 +309,15 @@ def k1_call_us(f, device) -> tuple[float, float]:
     the arguments made once."""
     a = mont.ones(f, (1,), device)
     b, out = a.clone(), torch.empty_like(a)
-    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), 1, cuda_mont.consts_ptr(f),
-            limbs.word_count(f), torch.cuda.current_stream().cuda_stream)
-    launcher = _build.launcher("tt_mont_mul")
+    stream = torch.cuda.current_stream().cuda_stream
+    if limbs.word_count(f) == 1:
+        args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), 1, 1, 1, cuda_mont.consts_ptr(f),
+                stream)
+        launcher = _build.launcher("tt_mont_mul1")
+    else:
+        args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), 1, cuda_mont.consts_ptr(f),
+                limbs.word_count(f), stream)
+        launcher = _build.launcher("tt_mont_mul")
 
     def per_call(call) -> float:
         call()
@@ -335,14 +377,15 @@ def bound_ms(nbytes: int, products: int, clock_hz: float) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check(name, got, want, kernel_ms, plain_ms, shape, plain_shape, work, results):
+def check(name, got, want, kernel_ms, plain_ms, shape, plain_shape, work, results,
+          per_mul=WORD_PRODUCTS):
     """Hold a kernel's output against its twin's; record the first (main
     path) shape's numbers.  work = (bytes, word products, clock in Hz); the
-    field multiplies per second are the products' multiplies over the
-    kernel's time.  Returns this shape's numbers."""
+    field multiplies per second are the products' multiplies (per_mul word
+    products each) over the kernel's time.  Returns this shape's numbers."""
     err = word_err(got, want)
     bms, by = bound_ms(*work)
-    rate = work[1] / WORD_PRODUCTS / (kernel_ms / 1e3)
+    rate = work[1] / per_mul / (kernel_ms / 1e3)
     log(f"[kernel] {name}: shape {shape} max_abs_err {err} kernel {kernel_ms:.4f} ms "
         f"plain {plain_ms:.4f} ms (plain at {plain_shape}) bound {bms:.4f} ms ({by}; "
         f"{work[0]} bytes, {work[1]} word products); {rate:.4g} field multiplies per s")
@@ -1494,6 +1537,236 @@ def phase_circom(device):
     return launches
 
 
+# the STARK path's one kernel: every BabyBear multiply (Poseidon2's S-boxes
+# and internal matrix, the NTTs, the extension ops, the folds) is K1 at W = 1
+STARK_PATH = ("mont_mul_w1",)
+K1_W1_PRODUCTS = 3  # word products of a one-word Montgomery multiply (2 W^2 + W)
+
+
+def k1_w1_check(g, device, clock_hz, results) -> None:
+    """K1 at W = 1: BabyBear at (1, 2^24) and with broadcast operands
+    against its twin, timed beside its bound; KoalaBear and Mersenne-31 on
+    edge operands; its host cost per call."""
+    f, n = presets.BABY_BEAR, SIZES["k1_w1"]
+    a, b = random_elements(f, n, g, device), random_elements(f, n, g, device)
+    a[:, 3:6] = b[:, 3:6]  # some squares
+    got, want = cuda_mont.mul(f, a, b), cuda_mont.mul_plain(f, a, b)
+    torch.cuda.synchronize()
+    check("mont_mul_w1", (got,), (want,), cuda_ms(lambda: cuda_mont.mul(f, a, b), 20),
+          cuda_ms(lambda: cuda_mont.mul_plain(f, a, b), 2), f"{f.name} (1, {n})",
+          f"{f.name} (1, {n})", (12 * n, K1_W1_PRODUCTS * n, clock_hz), results,
+          per_mul=K1_W1_PRODUCTS)
+    del got, want
+    # b read in place: a weight per column, a constant per Poseidon2 lane
+    for a_shape, b_shape in (((1, n // 16, 16), (1, 1, 16)), ((1, 16, n // 16), (1, 16, 1))):
+        x = a.reshape(a_shape)
+        y = b[:, :b_shape[1] * b_shape[2]].reshape(b_shape)
+        err = word_err((cuda_mont.mul(f, x, y),), (cuda_mont.mul_plain(f, x, y),))
+        ms = cuda_ms(lambda: cuda_mont.mul(f, x, y), 20)
+        full = y.expand(a_shape).contiguous()
+        ms_full = cuda_ms(lambda: cuda_mont.mul(f, x, full), 20)
+        bms, by = bound_ms(8 * n + 4 * y.numel(), K1_W1_PRODUCTS * n, clock_hz)
+        log(f"[k1-w1-broadcast] {a_shape} x {b_shape}: max_abs_err {err}; {ms:.4f} ms, "
+            f"{ms_full:.4f} ms with b expanded; bound {bms:.4f} ms ({by})")
+        if err:
+            raise AssertionError(f"mont_mul_w1: the broadcast {b_shape} differs from the twin")
+        results.setdefault("mont_mul_w1_broadcast", []).append(
+            {"shape": [list(a_shape), list(b_shape)], "ms": ms, "expanded_ms": ms_full,
+             "bound_ms": bms, "bound_by": by})
+    for f in (presets.BABY_BEAR, presets.KOALA_BEAR, presets.MERSENNE31):
+        a, b = k1_edges(f, device)
+        a = torch.cat([a, random_elements(f, SIZES["k1_fr"], g, device)], 1)
+        b = torch.cat([b, random_elements(f, SIZES["k1_fr"], g, device)], 1)
+        err = word_err((cuda_mont.mul(f, a, b),), (cuda_mont.mul_plain(f, a, b),))
+        log(f"[k1-w1-edges] {f.name}: {a.shape[1]} products (0, 1, mont(1), 2, p - 1 pairwise, "
+            f"then random) max_abs_err {err}")
+        if err:
+            raise AssertionError(f"mont_mul_w1: {f.name} differs from the plain twin")
+    wrapper_us, launcher_us = k1_call_us(presets.BABY_BEAR, device)
+    log(f"[k1-w1-call] {K1_CALLS} calls at n = 1, back to back: the wrapper {wrapper_us:.2f} "
+        f"us per call, its ctypes launcher alone {launcher_us:.2f} us")
+    results["mont_mul_w1_call_us"] = {"wrapper": wrapper_us, "launcher": launcher_us}
+
+
+def host_leaf(h, row: list) -> list:
+    """The Merkle leaf digest of one row on host ints: the rate-8 sponge."""
+    st = [0] * h.t
+    for off in range(0, len(row), 8):
+        chunk = row[off:off + 8]
+        st[:len(chunk)] = chunk
+        st = h.permute_host(st)
+    return st[:8]
+
+
+def poseidon2_check(device) -> dict:
+    """baby_bear_p3_w16 on 2^POSEIDON2_LOG_STATES states from SEED, timed;
+    POSEIDON2_SAMPLES sampled states equal to permute_host."""
+    h = poseidon2.baby_bear_p3_w16(device)
+    F = h.F
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED + 7)
+    n = 1 << POSEIDON2_LOG_STATES
+    vals = torch.randint(0, F.p, (h.t, n), generator=g, device=device)
+    st = F.encode_canonical(vals)
+    out, first_ms = timed_once(lambda: h.permute(st))
+    ms = cuda_ms(lambda: h.permute(st), 3)
+    idx = torch.randint(0, n, (POSEIDON2_SAMPLES,), generator=g, device=device)
+    ins = vals[:, idx].T.tolist()
+    outs = [[int(v) for v in col] for col in F.decode(out[:, :, idx]).T]
+    bad = sum(h.permute_host(x) != y for x, y in zip(ins, outs))
+    if bad:
+        raise AssertionError(f"Poseidon2: {bad} of {POSEIDON2_SAMPLES} sampled states differ "
+                             "from permute_host")
+    return {"states": n, "first_ms": round(first_ms, 4), "ms": round(ms, 4),
+            "ns_per_state": round(ms * 1e6 / n, 3), "sampled": POSEIDON2_SAMPLES}
+
+
+def fib_trace_mod_p(n: int, p: int) -> tuple[torch.Tensor, list]:
+    """The (n, 2) Fibonacci trace from (0, 1) mod p and its public values."""
+    rows = np.empty((n, 2), dtype=np.int64)
+    a, b = 0, 1
+    for i in range(n):
+        rows[i] = a, b
+        a, b = b, (a + b) % p
+    return torch.from_numpy(rows), [0, 1, int(rows[-1, 1])]
+
+
+def stark_pcs_inputs(device, log_n: int = None):
+    """The PCS of the STARK path (BabyBear, baby_bear4, baby_bear_p3_w16,
+    STARK_FRI) and its STARK_ROUNDS matrices of 2^log_n x STARK_COLS
+    canonical values, made on the device from SEED."""
+    F = PrimeField(presets.BABY_BEAR, device)
+    h = poseidon2.baby_bear_p3_w16(device)
+    pcs = TwoAdicFRIPCS(F, extensions.baby_bear4(device), h, FRIConfig(*STARK_FRI))
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED + 8)
+    n = 1 << (STARK_LOG_N if log_n is None else log_n)
+    return pcs, [F.encode_canonical(torch.randint(0, F.p, (n, STARK_COLS), generator=g,
+                                                  device=device))
+                 for _ in range(STARK_ROUNDS)]
+
+
+def pcs_challenger(h, roots):
+    """A rate-8 transcript that has observed the roots, and its zeta."""
+    ch = DuplexChallenger(h, rate=8)
+    for root in roots:
+        ch.observe_many(int(v) for v in h.F.decode(root))
+    return ch, ch.sample_ext(4)
+
+
+def pcs_path(pcs, mats, step=None):
+    """The PCS's main path: commit each round, observe the roots, open
+    every round at one sampled extension point, verify; each step inside
+    ``step(name)`` (a timer) where one is given."""
+    step = step or (lambda name: contextlib.nullcontext())
+    datas = []
+    for r, m in enumerate(mats):
+        with step(f"commit_{r}"):
+            datas.append(pcs.commit([m]))
+    roots = [d.root() for d in datas]
+    with step("observe"):
+        ch, zeta = pcs_challenger(pcs.h, roots)
+    points = [[[zeta]]] * len(mats)
+    with step("open"):
+        opened, proof = pcs.create_opening_proof(datas, points, ch)
+    dims = [[tuple(m.shape[1:])] for m in mats]
+    with step("verify"):
+        ok = pcs.verify_opening_proof(roots, dims, points, opened, proof,
+                                      pcs_challenger(pcs.h, roots)[0])
+    return datas, roots, points, dims, opened, proof, ok
+
+
+def stark_air_inputs(device, log_n: int = None):
+    """The Fibonacci uni-STARK over the STARK path's PCS, its 2^log_n trace
+    (canonical values) and public values."""
+    h = poseidon2.baby_bear_p3_w16(device)
+    pcs = TwoAdicFRIPCS(h.F, extensions.baby_bear4(device), h, FRIConfig(*STARK_FRI))
+    trace, pubs = fib_trace_mod_p(1 << (STARK_LOG_N if log_n is None else log_n), h.F.p)
+    return UniStark(pcs, fib_air(air_expr)), trace, pubs
+
+
+def phase_stark(device, clock_hz, results):
+    """Phase 8: K1 at W = 1, Poseidon2 and the pinned transcript on the card,
+    then the PCS and the uni-STARK through the port's entry points, each
+    step timed and checked.  Returns the two runs' launches, summed."""
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED + 6)
+    k1_w1_check(g, device, clock_hz, results)
+    perm = poseidon2_check(device)
+    log(f"[poseidon2] baby_bear_p3_w16 {json.dumps(perm)}")
+    t0 = time.perf_counter()
+    if fri_pinned.artifacts(device) != json.loads(fri_pinned.FIXTURE.read_text()):
+        raise AssertionError("the pinned FRI transcript on the card differs from "
+                             "tests/fixtures/fri_babybear_pinned.json")
+    log(f"[fri-pinned] every artifact equals the fixture ({time.perf_counter() - t0:.2f} s)")
+
+    pcs, mats = stark_pcs_inputs(device)
+    F, h, cfg = pcs.F, pcs.h, pcs.cfg
+    n, C = 1 << STARK_LOG_N, STARK_COLS
+    steps: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    datas, roots, points, dims, opened, proof, ok = pcs_path(pcs, mats, cuda_timer(steps))
+    pcs_launches = read_launches(STARK_PATH)
+    pcs_peak = torch.cuda.max_memory_allocated()
+    pcs_s = sum(v["host_s"] for v in steps.values())
+
+    # checks, beyond the main path's run
+    t0 = time.perf_counter()
+    bad_val = opened[0][0][0].clone()
+    bad_val[0, 0, 0] = (bad_val[0, 0, 0] + 1) % F.p
+    tampered = (((bad_val,),),) + tuple(opened[1:])
+    if ok is not True or pcs.verify_opening_proof(roots, dims, points, tampered, proof,
+                                                  pcs_challenger(h, roots)[0]) is not False:
+        raise AssertionError("PCS: the proof does not verify, or verifies a tampered value")
+    rng = np.random.default_rng(SEED + 8)
+    leaves = sorted(rng.choice(n << cfg.log_blowup, STARK_LEAVES, replace=False).tolist())
+    lidx = torch.tensor(leaves, device=device)
+    for r, d in enumerate(datas):
+        rows = F.decode(d.ldes[0].index_select(1, lidx))  # (STARK_LEAVES, C)
+        digests = F.decode(d.tree.digest_layers[0].index_select(2, lidx))  # (8, STARK_LEAVES)
+        for j in range(STARK_LEAVES):
+            if host_leaf(h, [int(v) for v in rows[j]]) != [int(v) for v in digests[:, j]]:
+                raise AssertionError(f"PCS round {r}: leaf {leaves[j]}'s digest differs from "
+                                     "its host hash")
+    checks_s = time.perf_counter() - t0
+    log(f"[stark-pcs] baby_bear rounds={STARK_ROUNDS} rows=2^{STARK_LOG_N} cols={C} "
+        f"fri={json.dumps(dataclasses.asdict(cfg))} verified=True tampered_rejected=True "
+        f"leaves_checked={STARK_LEAVES * STARK_ROUNDS} "
+        f"pcs_s={pcs_s:.3f} checks_s={checks_s:.3f} peak_mem_bytes={pcs_peak} "
+        f"pow_witness={proof.pow_witness} steps={json.dumps(steps)} "
+        f"launches={json.dumps(pcs_launches)}")
+    results["stark_pcs"] = {"steps": steps, "pcs_s": pcs_s, "peak_mem_bytes": pcs_peak}
+    del datas, opened, proof, mats, roots, tampered, bad_val
+
+    # the Fibonacci uni-STARK at 2^STARK_LOG_N
+    t0 = time.perf_counter()
+    stark, trace, pubs = stark_air_inputs(device)
+    trace_s = time.perf_counter() - t0
+    air_steps: dict = {}
+    step = cuda_timer(air_steps)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with step("prove"):
+        sp = stark.prove(trace, pubs, DuplexChallenger(h, rate=8))
+    with step("verify"):
+        ok = stark.verify(sp, pubs, DuplexChallenger(h, rate=8))
+    air_launches = read_launches(STARK_PATH)
+    air_peak = torch.cuda.max_memory_allocated()
+    wrong = pubs[:2] + [(pubs[2] + 1) % F.p]
+    if ok is not True or stark.verify(sp, wrong, DuplexChallenger(h, rate=8)) is not False:
+        raise AssertionError("uni-STARK: the proof does not verify, or verifies for output + 1")
+    log(f"[stark-air] fibonacci n=2^{STARK_LOG_N} verified=True wrong_public_rejected=True "
+        f"trace_s={trace_s:.3f} peak_mem_bytes={air_peak} steps={json.dumps(air_steps)} "
+        f"launches={json.dumps(air_launches)}")
+    results["stark_air"] = {"steps": air_steps, "peak_mem_bytes": air_peak}
+    return {k: pcs_launches[k] + air_launches[k] for k in pcs_launches}
+
+
 def ptxas_registers(nvcc_log: str) -> dict:
     """Registers and spill-store bytes of each kernel from ptxas's -v
     lines, by the kernel's unmangled name."""
@@ -1600,6 +1873,7 @@ def main() -> int:
     kzg_launches = phase("kzg", phase_kzg)
     groth16_launches = phase("groth16", phase_groth16)
     circom_launches = phase("circom", phase_circom)
+    stark_launches = phase("stark", phase_stark, clock_hz, results)
     log(f"[phases] seconds {json.dumps(phase_s)}, since the build started "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -1608,14 +1882,15 @@ def main() -> int:
         r = results[name]
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "launches": (msm_launches[name] + kzg_launches[name] + groth16_launches[name]
-                              + circom_launches[name]),
+                              + circom_launches[name] + stark_launches[name]),
                  "max_abs_err": r["max_abs_err"],
                  "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": None, "fmul_per_s": r["fmul_per_s"],
                  "launches_by_path": {f"msm_2^{LOG_N}": msm_launches[name],
                                       f"kzg_2^{KZG_LOG_N}": kzg_launches[name],
                                       f"groth16_2^{GROTH16_LOG_N}": groth16_launches[name],
-                                      f"circom_2^{CIRCOM_LOG_N}": circom_launches[name]},
+                                      f"circom_2^{CIRCOM_LOG_N}": circom_launches[name],
+                                      f"stark_2^{STARK_LOG_N}": stark_launches[name]},
                  "shape": r["shape"], "plain_shape": r["plain_shape"]}
         if name in ALSO_REPLACES:
             entry["also_replaces"] = ALSO_REPLACES[name]
@@ -1625,6 +1900,9 @@ def main() -> int:
             entry.update(results["reduce_sweep_segments"])
         if name == "mont_mul":
             entry["call_us"] = results["mont_mul_call_us"]
+        if name == "mont_mul_w1":
+            entry["call_us"] = results["mont_mul_w1_call_us"]
+            entry["broadcast"] = results["mont_mul_w1_broadcast"]
         if name == "horner":
             entry["k3_k2_loop_ms"] = results["horner_loop_ms"]
             entry["chain"] = results["horner_chain"]

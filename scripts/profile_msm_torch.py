@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Profile the PyTorch/CUDA port's BN254 paths on one GPU with torch.profiler.
+"""Profile the PyTorch/CUDA port's paths on one GPU with torch.profiler.
 
     python3 scripts/profile_msm_torch.py [--log-n 22] [--kzg-log-n 20]
-        [--groth16-log-n 18] [--circom-log-n 18] [--out DIR]
+        [--groth16-log-n 18] [--circom-log-n 18] [--stark-log-n 20] [--out DIR]
 
-Builds the kernels, then traces, each after one warm-up run:
+Builds the kernels, then traces, each after one warm-up run (a size of 0
+skips its path):
 - the G1 MSM (msm + to_affine) on chip_smoke.py's 2^log_n point set;
 - the KZG unsafe setup at 2^kzg_log_n;
 - one KZG commit (msm + to_affine) of 2^kzg_log_n coefficients;
@@ -12,7 +13,11 @@ Builds the kernels, then traces, each after one warm-up run:
   2^groth16_log_n constraints, after its setup (0 skips it);
 - one circom Groth16 prove (at fixed r and s) on chip_smoke.py's key of a
   2^circom_log_n domain, written to a temporary directory, parsed and
-  loaded into CircomGroth16Prover (0 skips it).
+  loaded into CircomGroth16Prover (0 skips it);
+- the BabyBear STARK path of chip_smoke.py phase 8 at 2^stark_log_n rows:
+  one PCS commit of a 2^stark_log_n x 100 matrix (its trace written), the
+  whole PCS path (four commits, the opening, verify) and the Fibonacci
+  uni-STARK's prove and verify (device activity only).
 For each it prints the device time by kernel name and the device busy and
 idle shares of the traced window, and writes the Chrome trace to
 <out>/<name>_trace.json; the proves' G2 MSM launches millions of small
@@ -87,6 +92,7 @@ def main() -> int:
     ap.add_argument("--kzg-log-n", type=int, default=20)
     ap.add_argument("--groth16-log-n", type=int, default=18)
     ap.add_argument("--circom-log-n", type=int, default=18)
+    ap.add_argument("--stark-log-n", type=int, default=20)
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -99,21 +105,40 @@ def main() -> int:
     _build.library()
     device = torch.device("cuda", 0)
     out = Path(args.out)
-    curve = curves.bn254_g1(device)
-    points, scalars, _, _ = chip_smoke.slice_inputs(curve, 1 << args.log_n)
-    profile(f"msm_2^{args.log_n}", lambda: curve.to_affine(msm(curve, points, scalars)), out)
-    del points, scalars
-    torch.cuda.empty_cache()
+    if args.log_n:
+        curve = curves.bn254_g1(device)
+        points, scalars, _, _ = chip_smoke.slice_inputs(curve, 1 << args.log_n)
+        profile(f"msm_2^{args.log_n}", lambda: curve.to_affine(msm(curve, points, scalars)),
+                out)
+        del points, scalars
+        torch.cuda.empty_cache()
+    if args.kzg_log_n:
+        n = 1 << args.kzg_log_n
+        params = {}
+        profile(f"kzg_setup_2^{args.kzg_log_n}",
+                lambda: params.update(p=kzg.unsafe_setup(n, 0x1234567, device)), out)
+        coeffs = torch.randint(0, 1 << 29, (8, n), dtype=torch.int32, device=device)
+        profile(f"kzg_commit_2^{args.kzg_log_n}",
+                lambda: kzg.to_int_point(kzg.commit(params["p"], coeffs)), out)
+        del params, coeffs
+        torch.cuda.empty_cache()
+    if args.stark_log_n:
+        k = args.stark_log_n
+        pcs, mats = chip_smoke.stark_pcs_inputs(device, k)
+        profile(f"pcs_commit_2^{k}", lambda: pcs.commit([mats[0]]), out)
+        profile(f"pcs_2^{k}", lambda: chip_smoke.pcs_path(pcs, mats), out, host=False)
+        del pcs, mats
+        torch.cuda.empty_cache()
+        stark, trace, pubs = chip_smoke.stark_air_inputs(device, k)
 
-    n = 1 << args.kzg_log_n
-    params = {}
-    profile(f"kzg_setup_2^{args.kzg_log_n}",
-            lambda: params.update(p=kzg.unsafe_setup(n, 0x1234567, device)), out)
-    coeffs = torch.randint(0, 1 << 29, (8, n), dtype=torch.int32, device=device)
-    profile(f"kzg_commit_2^{args.kzg_log_n}",
-            lambda: kzg.to_int_point(kzg.commit(params["p"], coeffs)), out)
-    del params, coeffs
-    torch.cuda.empty_cache()
+        def prove_verify():
+            h = stark.pcs.h
+            proof = stark.prove(trace, pubs, chip_smoke.DuplexChallenger(h, rate=8))
+            assert stark.verify(proof, pubs, chip_smoke.DuplexChallenger(h, rate=8))
+
+        profile(f"stark_2^{k}", prove_verify, out, host=False)
+        del stark, trace
+        torch.cuda.empty_cache()
     if args.groth16_log_n:
         rr = r1cs.pairing.R
         circuit, public, private = circuits.square_chain(1 << args.groth16_log_n, 0x1234567)

@@ -15,12 +15,15 @@ the port therefore batches: the D coefficients of a linear op go through
 one base op, and the D^2 products of ``mul`` through one base multiply over
 a stacked batch (one K1 launch on the card), with the non-residue's
 multiply in one more.
+
+``HostExt`` is the exact host arithmetic on lists of D Python ints that the
+STARK verifier and the challengers use for single values.
 """
 from __future__ import annotations
 
 import torch
 
-from tachyon_tpu_torch.math.field import _shape
+from tachyon_tpu_torch.math.field import PrimeField, _shape
 
 
 class ExtField:
@@ -153,6 +156,11 @@ class ExtField:
     def square(self, a):
         return self.mul(a, a)
 
+    def sum(self, a, dim=-1):
+        """The sum over a batch axis (each coefficient through the base's
+        ``sum``)."""
+        return self._lin(lambda x: self.base.sum(x, dim), a)
+
     # --- equality / select --------------------------------------------------
     def is_zero(self, a):
         return (a == 0).flatten(0, self.coeff_ndim - 1).all(dim=0)
@@ -165,9 +173,12 @@ class ExtField:
 
     # --- inversion ------------------------------------------------------------
     def inv(self, a):
-        """Inverse (0 -> 0): the norm formula for D = 2 and 3, Fermat over
-        the extension otherwise."""
+        """Inverse (0 -> 0): the norm formula for D = 2, 3 and 4, Fermat over
+        the extension otherwise (the JAX package takes Fermat for D = 4:
+        the inverse is unique, so the words are the same)."""
         B = self.base
+        if self.D == 4:
+            return self._inv4(a)
         if self.D == 2:
             # (a0 - a1 x) / (a0^2 - nr a1^2)
             a0, a1 = a.unbind(0)
@@ -190,6 +201,28 @@ class ExtField:
             return torch.stack(self._unstack(B.mul(self._stack([c0, c1, c2]),
                                                    self._stack([ninv] * 3))))
         return self.pow_const(a, self.order - 2)
+
+    def _inv4(self, a):
+        """D = 4 through the quadratic subfield: with v = x^2 (v^2 = nr),
+        a = A + x B for A = a0 + a2 v, B = a1 + a3 v, so a (A - x B) =
+        A^2 - v B^2 = n0 + n1 v, whose inverse is (n0 - n1 v) / (n0^2 -
+        nr n1^2); then a^-1 = (A - x B)(m0 + m1 v).  One base inverse, no
+        exponent over the extension."""
+        B, n = self.base, self.mul_by_nonresidue
+        a0, a1, a2, a3 = a.unbind(0)
+        s00, s22, s13, s02, s11, s33 = self._unstack(B.mul(
+            self._stack([a0, a2, a1, a0, a1, a3]), self._stack([a0, a2, a3, a2, a1, a3])))
+        n0 = B.sub(B.add(s00, n(s22)), B.double(n(s13)))  # a0^2 + nr a2^2 - 2 nr a1 a3
+        n1 = B.sub(B.double(s02), B.add(s11, n(s33)))     # 2 a0 a2 - a1^2 - nr a3^2
+        q0, q1 = self._unstack(B.square(self._stack([n0, n1])))
+        dinv = B.inv(B.sub(q0, n(q1)))
+        m0, m1 = self._unstack(B.mul(self._stack([n0, B.neg(n1)]), self._stack([dinv, dinv])))
+        t = self._unstack(B.mul(self._stack([a0, a2, a0, a2, a1, a3, a1, a3]),
+                                self._stack([m0, m1, m1, m0, m0, m1, m1, m0])))
+        return torch.stack([B.add(t[0], n(t[1])),            # a0 m0 + nr a2 m1
+                            B.neg(B.add(t[4], n(t[5]))),     # -(a1 m0 + nr a3 m1)
+                            B.add(t[2], t[3]),               # a0 m1 + a2 m0
+                            B.neg(B.add(t[6], t[7]))])       # -(a1 m1 + a3 m0)
 
     def pow_const(self, a, e: int):
         """a ** e for a host exponent, MSB-first square-and-multiply (a zero
@@ -230,3 +263,65 @@ class ExtField:
         res = torch.stack(out, dim=cn)
         res = self.select(zero, torch.zeros_like(res), res)
         return torch.movedim(res, cn, axis)
+
+
+class HostExt:
+    """Exact host arithmetic in F_p[x]/(x^D - nr) (port of ``HostExt`` in
+    ``tachyon_tpu/math/extfield.py``).
+
+    Elements are lists of D Python ints, coefficient-major as
+    ``ExtField.decode`` gives them.  The verifier's constraint fold at an
+    extension point and the challengers' bookkeeping use it, where a device
+    round trip per scalar op would dominate.  Prime base fields only."""
+
+    def __init__(self, ext: ExtField):
+        if not isinstance(ext.base, PrimeField):
+            raise TypeError("HostExt: prime base fields only")
+        self.D = ext.D
+        self.p = ext.p
+        self.nr = int(ext._nr_host)
+
+    def e(self, x) -> list:
+        """An int embedded, or a sequence coerced to D canonical ints."""
+        if isinstance(x, int):
+            return [x % self.p] + [0] * (self.D - 1)
+        out = [int(c) % self.p for c in x]
+        if len(out) != self.D:
+            raise ValueError(f"{len(out)} coefficients, not {self.D}")
+        return out
+
+    def add(self, a, b):
+        return [(x + y) % self.p for x, y in zip(self.e(a), self.e(b))]
+
+    def sub(self, a, b):
+        return [(x - y) % self.p for x, y in zip(self.e(a), self.e(b))]
+
+    def neg(self, a):
+        return [(-x) % self.p for x in self.e(a)]
+
+    def mul(self, a, b):
+        a, b = self.e(a), self.e(b)
+        D, p, nr = self.D, self.p, self.nr
+        out = [0] * D
+        for i in range(D):
+            if a[i] == 0:
+                continue
+            for j in range(D):
+                t = a[i] * b[j]
+                if i + j >= D:
+                    out[i + j - D] = (out[i + j - D] + t * nr) % p
+                else:
+                    out[i + j] = (out[i + j] + t) % p
+        return out
+
+    def pow(self, a, e: int):
+        r, a = self.e(1), self.e(a)
+        while e:
+            if e & 1:
+                r = self.mul(r, a)
+            a = self.mul(a, a)
+            e >>= 1
+        return r
+
+    def inv(self, a):
+        return self.pow(a, self.p ** self.D - 2)

@@ -80,6 +80,22 @@ class PrimeField:
         """Montgomery words -> numpy object array of Python ints."""
         return limbs.decode(self.spec, words)
 
+    def encode_canonical(self, xs: torch.Tensor):
+        """Canonical values (an integer tensor of any shape, each in [0, p))
+        -> Montgomery words (1, *shape) on the field's device, through K1
+        with R^2 mod p: the device encode of a one-word field, where
+        ``encode`` would reduce Python ints one by one on the host."""
+        if self.W != 1:
+            raise ValueError(f"{self.name}: encode_canonical takes one-word fields")
+        return mont.to_mont(self.spec, xs.to(self.device, torch.int32)[None])
+
+    def to_canonical(self, words):
+        """Montgomery words (1, *shape) of a one-word field -> canonical
+        int32 values (*shape) on the device (K1 with the integer 1)."""
+        if self.W != 1:
+            raise ValueError(f"{self.name}: to_canonical takes one-word fields")
+        return mont.mont_reduce(self.spec, words)[0]
+
     # --- arithmetic ---------------------------------------------------------
     def add(self, a, b):
         return mont.add(self.spec, a, b)
@@ -110,6 +126,10 @@ class PrimeField:
 
     def batch_inverse(self, a, axis=-1):
         return mont.batch_inverse(self.spec, a, axis=axis)
+
+    def sum(self, a, dim=-1):
+        """The field sum over a batch axis."""
+        return mont.sum_axis(self.spec, a, dim)
 
     def is_zero(self, a):
         return mont.is_zero(self.spec, a)

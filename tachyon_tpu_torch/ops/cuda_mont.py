@@ -18,8 +18,17 @@ runs on one or two elements (``to_affine``) and, on the KZG path, on
 thousands of small batches: there the wrapper's host time per call is the
 cost, so the wrapper does no work that fitting inputs do not need.
 
+At one word (W = 1: BabyBear, KoalaBear, Mersenne-31) K1 is its own
+kernel, ``mont_mul1_kernel`` behind ``mul1``: a 64-bit product, one 32-bit
+reduction round and one conditional subtract, in a grid-stride loop.  It
+moves 12 bytes an element against 3 word products, so it is bound by
+bytes; a ``b`` that broadcasts along one run of a's axes (a constant per
+Poseidon2 lane, an NTT stage's twiddles, a weight per column) is read in
+place rather than expanded first.  ``mul`` sends W = 1 there.  Goldilocks
+(W = 2) has no kernel yet and raises on the card.
+
 ``mul_plain`` is the plain PyTorch twin: the CPU path and the reference the
-kernel is held against on the card.
+kernel is held against on the card, at every W.
 """
 from __future__ import annotations
 
@@ -33,7 +42,8 @@ from tachyon_tpu_torch.fields.limbs import int_to_words, n0inv32, word_count
 from tachyon_tpu_torch.ops import _build
 from tachyon_tpu_torch.ops.mont import _consts, csub_p, ripple, widen
 
-SUPPORTED_W = (8,)  # word counts the kernels are instantiated for (BN254)
+SUPPORTED_W = (1, 8)  # word counts K1 is instantiated for (31-bit fields, BN254)
+POINT_W = 8  # the point and MSM kernels: BN254 only
 
 
 @functools.lru_cache(maxsize=None)
@@ -60,6 +70,8 @@ def check_cuda(f: FieldSpec, *ts: torch.Tensor, any_width: bool = False) -> int:
     W = word_count(f)
     if W not in SUPPORTED_W:
         raise ValueError(f"{f.name}: no CUDA kernel for W={W} (have {SUPPORTED_W})")
+    if not any_width and W != POINT_W:
+        raise ValueError(f"{f.name}: the point kernels take W = {POINT_W} only, not W={W}")
     if not any_width and not has_spare_bit(f):
         raise ValueError(f"{f.name}: the point kernels need p < 2^{32 * W - 1}")
     dev = ts[0].get_device()
@@ -112,13 +124,70 @@ def mul_plain(f: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return csub_p(f, words, hi[L] + carry[L - 1] + c)
 
 
+def broadcast_run(out_shape, b_shape) -> tuple[int, int] | None:
+    """(inner, period) such that b's element for a's flat index k is b's
+    flat element (k // inner) % period, when the axes along which b varies
+    are one contiguous run of the output's axes; None otherwise.  Equal
+    shapes give (1, n)."""
+    nd = len(out_shape)
+    bs = (1,) * (nd - len(b_shape)) + tuple(b_shape)
+    live = [i for i in range(nd) if out_shape[i] != 1 and bs[i] != 1]
+    if not live:
+        return 1, 1
+    lo, hi = live[0], live[-1] + 1
+    if any(bs[i] == 1 and out_shape[i] != 1 for i in range(lo, hi)):
+        return None
+    inner = 1
+    for d in out_shape[hi:]:
+        inner *= d
+    period = 1
+    for d in out_shape[lo:hi]:
+        period *= d
+    return inner, period
+
+
+def mul1(f: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K1 at W = 1 on CUDA tensors (1, *batch), broadcasting as PyTorch
+    does: the operand of the output's shape streams, the other is read in
+    place where ``broadcast_run`` finds its pattern, else expanded.  Equal
+    shapes take the short path (the wrapper's host time is K1's cost on
+    small batches)."""
+    run = None
+    if a.shape == b.shape:
+        a, b = a.contiguous(), b.contiguous()
+    else:
+        shape = torch.broadcast_shapes(a.shape, b.shape)
+        if a.shape != shape and b.shape == shape:
+            a, b = b, a  # the product commutes, word for word
+        a = a.expand(shape).contiguous()
+        run = broadcast_run(shape, b.shape)
+        if run is not None and run[1] != a.numel() and a.numel() >= 1 << 32:
+            run = None  # the kernel's broadcast index is 32-bit
+        b = (b if run is not None else b.expand(shape)).contiguous()
+    if not (a.is_cuda and a.dtype == b.dtype == torch.int32 and b.device == a.device):
+        check_cuda(f, a, b, any_width=True)  # raises with the reason
+    n = a.numel()
+    inner, period = run or (1, n)
+    out = torch.empty_like(a)
+    if n:
+        _build.launch("tt_mont_mul1", a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
+                      inner, period, consts_ptr(f))
+        mul1.launches += 1
+    return out
+
+
+mul1.launches = 0
+
+
 def mul(f: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Montgomery product of (W, *batch) int32 words.  CPU tensors take
-    ``mul_plain``; CUDA tensors launch K1 or raise."""
+    ``mul_plain``; CUDA tensors launch K1 (``mul1`` at W = 1) or raise."""
+    if a.is_cpu and b.is_cpu:
+        return mul_plain(f, a, b)
+    if f.L == 2:
+        return mul1(f, a, b)
     if a.shape != b.shape:
         a, b = torch.broadcast_tensors(a, b)
-    if a.is_cpu:
-        return mul_plain(f, a, b)
     a, b = a.contiguous(), b.contiguous()
     W = check_cuda(f, a, b, any_width=True)
     n = a.numel() // W

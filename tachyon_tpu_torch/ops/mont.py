@@ -12,7 +12,12 @@ short plain tensor programs on both devices: they are XLA glue in the JAX
 package too, not Pallas kernels.
 
 Plain arithmetic widens the uint32 words to int64 (masking off the int32
-sign extension), ripples carries word by word, and narrows back.
+sign extension), ripples carries word by word, and narrows back.  At one
+word (W = 1, p < 2^31) add, sub and neg stay in int32: a difference in
+(-p, p), plus p where it is negative (its sign bit, shifted out and masked
+with p), which is the same canonical word in three or four tensor ops.
+``sum_axis`` reduces an axis: at W = 1 one int64 sum and one remainder (exact
+for fewer than 2^32 terms), a tree of field adds otherwise.
 """
 from __future__ import annotations
 
@@ -101,13 +106,22 @@ def ones(f: FieldSpec, batch_shape: Sequence[int],
     return _col(one, 1 + len(batch_shape)).expand(-1, *batch_shape).contiguous()
 
 
+def _wrap_p(f: FieldSpec, d: torch.Tensor) -> torch.Tensor:
+    """int32 values in (-p, p) -> canonical (add p where negative), W = 1."""
+    return d + ((d >> 31) & f.p)
+
+
 def add(f: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if f.L == 2:
+        return _wrap_p(f, (a - f.p) + b)
     a, b = torch.broadcast_tensors(a, b)
     w, c = ripple(widen(a) + widen(b))
     return csub_p(f, w, c)
 
 
 def sub(f: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if f.L == 2:
+        return _wrap_p(f, a - b)
     a, b = torch.broadcast_tensors(a, b)
     d, borrow = _borrow_ripple(widen(a) - widen(b))
     # borrow == 1: a < b, add p back (the carry out of that add is dropped)
@@ -117,7 +131,28 @@ def sub(f: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def neg(f: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    if f.L == 2:
+        return _wrap_p(f, -a)
     return sub(f, torch.zeros_like(a), a)
+
+
+def sum_axis(f: FieldSpec, a: torch.Tensor, dim: int) -> torch.Tensor:
+    """The field sum over batch axis ``dim`` (not the word axis 0)."""
+    if dim < 0:
+        dim += a.ndim
+    if dim == 0:
+        raise ValueError("axis 0 is the word axis")
+    if f.L == 2:
+        if a.shape[dim] >= 1 << 32:
+            raise ValueError("the int64 sum is exact for fewer than 2^32 terms")
+        return torch.remainder(torch.sum(a, dim, dtype=torch.int64), f.p).to(torch.int32)
+    while a.shape[dim] > 1:
+        m = a.shape[dim]
+        lo, hi = a.narrow(dim, 0, m // 2), a.narrow(dim, m // 2, m // 2)
+        s = add(f, lo, hi)
+        a = torch.cat([s, a.narrow(dim, m - 1, 1)], dim) if m % 2 else s
+    return a.squeeze(dim) if a.shape[dim] == 1 else zeros(f, a.shape[1:dim] + a.shape[dim + 1:],
+                                                          a.device)
 
 
 def double(f: FieldSpec, a: torch.Tensor) -> torch.Tensor:

@@ -55,7 +55,7 @@ def _family(name: str) -> dict:
         raise NotImplementedError(
             "bls12_381 waits for W = 12 instantiations of the kernels (K1 mont_mul, the "
             "point kernels, the ladder, K5/K6, the lane, bucket and Horner kernels; "
-            "ops/cuda_mont.SUPPORTED_W is (8,))")
+            "ops/cuda_mont.SUPPORTED_W is (1, 8), the point kernels W = 8)")
     if name not in CURVE_FAMILIES:
         raise ValueError(f"unknown curve family {name!r}")
     return CURVE_FAMILIES[name]

@@ -189,16 +189,20 @@ def test_cpu_tensors_launch_no_kernel():
     assert [w.launches for w in wrappers] == [0] * len(wrappers)
 
 
+SCRIPTS = ["chip_smoke", "scripts.circom_key", "scripts.fri_pinned",
+           "scripts.make_torch_stark_fixture"]
+
+
 def test_port_imports_without_jax():
-    """Every port module, chip_smoke and the circom key writer
-    (scripts/circom_key.py) import with jax and the JAX package
-    (tachyon_tpu) made unimportable."""
+    """Every port module, chip_smoke and the scripts it imports (the circom
+    key writer, the pinned FRI transcript, the STARK fixture's AIR) import
+    with jax and the JAX package (tachyon_tpu) made unimportable."""
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "tachyon_tpu_torch").rglob("*.py"))
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['tachyon_tpu'] = None\n"
-        f"import importlib\nfor m in {mods + ['chip_smoke', 'scripts.circom_key']!r}:\n"
+        f"import importlib\nfor m in {mods + SCRIPTS!r}:\n"
         "    importlib.import_module(m)\n"
         "assert not any(k.split('.')[0] in ('jax', 'tachyon_tpu') for k in sys.modules"
         " if sys.modules[k] is not None)\n"
