@@ -85,13 +85,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    equal its leaf digests; then the Fibonacci uni-STARK at n = 2^20 (the
    same FRI config): prove and verify, timed; it verifies and fails for the
    public output + 1; with peak memory and K1's launches;
-9. prints the card's line, the kernels' JSON line, then the result line
+9. groth16_bls12_381: every kernel's W = 12 instantiation (BLS12-381's
+   381-bit Fq) against its plain twin on the card, word for word, at the
+   BLS12-381 path's shapes (BLS_SIZES: K1 at (12, 2^22) and on edge
+   operands; K2, K3 and K4 at (12, 2^20); the ladder at 2^19 lanes; K5 at
+   (33, 12, 4096) and (32, 12, 4096), also as points against the sequential
+   twin; K6 at (16, 12, 512); the lane scan at 4096 and the fold at 512
+   lanes; the bucket kernel at 2^13 buckets; Horner at 20 windows of 13
+   bits), each timed beside its bound at 2 W^2 + W = 300 word products a
+   field multiply; then the native Groth16 prover over BLS12-381 on a
+   square chain of 2^17 constraints (the domain of a Zcash Sapling Spend
+   circuit), from SEED: setup from five secrets, Groth16(...), prove at
+   fixed r and s (the witness map and each MSM timed), verify; the proof
+   verifies and fails for the output + 1, a second prove gives the same
+   tuple, a wrong witness's proof fails, 64 sampled a_query and b2_query
+   points are on their curves; with peak memory and the launch counts by
+   word count (the ladder once, Horner 4 times, K2 never at W = 12);
+10. prints the card's line, the kernels' JSON line (an entry for every
+   kernel at W = 8, K1 at W = 1, and every kernel at W = 12 named
+   ``<name>_w12``), then the result line
    {"ok": true, "device": {"platform": "gpu", ...}} last.
 
-Each main path (4, 5, 6, 7 and 8's PCS and uni-STARK runs) runs with every
-launch count set to 0 just before it, and fails if a kernel of that path
-(MSM_PATH, KZG_PATH, GROTH16_PATH, CIRCOM_PATH, STARK_PATH) was launched no
-time.  Phase 3 also holds, at
+Each main path (4, 5, 6, 7, 8's PCS and uni-STARK runs, and 9) runs with
+every launch count set to 0 just before it, and fails if a kernel of that
+path (MSM_PATH, KZG_PATH, GROTH16_PATH, CIRCOM_PATH, STARK_PATH) was
+launched no time.  Phase 3 also holds, at
 the 2^18 paths' shapes (c = 14), K5 at the Groth16 path's (65, 8, 4096)
 and the circom path's (64, 8, 4096), K6 at their (32, 8, 512), the bucket
 kernel on T rows (64, 8, 4096) and (65, 8, 4096) with 2^14 buckets into
@@ -185,11 +203,18 @@ MSM_RUNS = 5  # timed runs of the 2^22 MSM after the checked one
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, at 700 W
 IMAD_PER_CLK_SM = 64       # 32-bit integer multiply-adds per clock per SM, cc 9.0
 SMS = 132
-# word products of one W = 8 Montgomery multiply (CIOS: W^2 for a*b, W^2 + W
-# for m*p): the work of the function, for every operations bound, whatever
-# instructions the kernels' multiply compiles to (the SASS counts are printed
-# as information only)
-WORD_PRODUCTS = 2 * 8 * 8 + 8
+
+
+def word_products(W: int) -> int:
+    """Word products of one W-word Montgomery multiply (CIOS: W^2 for a*b,
+    W^2 + W for m*p), 136 at W = 8 and 300 at W = 12: the work of the
+    function, for every operations bound, whatever instructions the
+    kernels' multiply compiles to (the SASS counts are printed as
+    information only)."""
+    return 2 * W * W + W
+
+
+WORD_PRODUCTS = word_products(8)
 K1_CALLS = 1000  # back-to-back K1 calls at n = 1 for its host cost per call
 
 # name -> (wrapper carrying the launch count, source, TPU kernel it replaces)
@@ -407,46 +432,88 @@ def row_tiled(base_x, base_y, R: int, C: int, fixed: int = 0):
     return tuple(b[:, idx].permute(1, 0, 2).contiguous() for b in (base_x, base_y))
 
 
-def k5_small(f, base_x, base_y, d1, g, device, clock_hz) -> list:
-    """K5 at the smaller MSMs' (R, C): the S that ``segments`` picks and
-    each S of K5_SMALL_S, timed (CUDA events, 20 calls); every S's rows
-    equal as points to S = 1's, the S = 1 rows word for word to the
-    sequential twin and the picked S's to the segmented twin (timed once,
-    beside the bound)."""
+def k5_rows(base_x, base_y, R: int, C: int, g, fixed: int = 0):
+    """K5's rows (R, W, C): ``row_tiled`` rows of the base points, 5% of
+    them at infinity."""
+    x, y = row_tiled(base_x, base_y, R, C, fixed)
+    inf = (torch.rand((R, 1, C), generator=g, device=x.device) < 0.05).to(torch.int32)
+    return x, y, inf
+
+
+def k5_work(x, inf, clock_hz):
+    """K5's bytes (rows, inf and D read, the suffix sums written) and the
+    field multiplies its live rows need (10 each)."""
+    R, W, C = x.shape
+    eb = 4 * W  # bytes an element
+    return (R * C * (2 * eb + 4) + 4 * eb * C + 4 * eb * R * C,
+            word_products(W) * 10 * (R * C - int(inf.sum())), clock_hz)
+
+
+def k5_check(f, x, y, inf, dc, clock_hz, results, c0: int = 0, reps: int = 20) -> tuple:
+    """K5 on rows (x, y, inf) at the segment count it picks: its rows on the
+    first c0 lanes (all by default) word for word against the segmented
+    twin (timed once) and as points against the sequential twin; each
+    launch and the whole timed beside the bound.  Returns the suffix sums,
+    the sequential twin's rows on those lanes and its numbers."""
+    R, W, C = x.shape
+    c0 = c0 or C
+    plan = cuda_msm.suffix_sweep_plan(f, x, y, inf, dc)
+    S, L = plan.S, -(-R // plan.S)
+    suf = cuda_msm.suffix_sweep(f, x, y, inf, dc)
+    sl = (slice(None), slice(None), slice(0, c0))
+    xs, ys, infs = (t[sl].contiguous() for t in (x, y, inf))
+    ds = tuple(t[:, :c0].contiguous() for t in dc)
+    want, plain_ms = timed_once(lambda: cuda_msm.suffix_sweep_segmented_plain(
+        f, xs, ys, infs, ds, S))
+    seq = cuda_msm.suffix_sweep_plain(f, xs, ys, infs, ds)
+    got = tuple(t[sl] for t in suf)
+    same = same_points(f, tuple(t.permute(1, 0, 2) for t in got),
+                       tuple(t.permute(1, 0, 2) for t in seq)).view(R, c0)
+    if not bool(same.all()):
+        bad = same.logical_not().nonzero()[:4].tolist()
+        raise AssertionError(f"suffix_sweep at ({R}, {W}, {C}): rows differ as points from "
+                             f"the sequential twin at (row, lane) {bad}")
+    phase_ms = [cuda_ms(lambda a=args, nm=name: _build.launch(nm, *a), reps)
+                for name, args in plan.launches]
+    del plan
+    ms = cuda_ms(lambda: cuda_msm.suffix_sweep(f, x, y, inf, dc), reps)
+    work = k5_work(x, inf, clock_hz)
+    log(f"[k5] ({R}, {W}, {C}): S={S} segments of {L} rows; each launch (totals, carries, "
+        f"emit) {phase_ms} ms; whole {ms:.4f} ms, bound {bound_ms(*work)[0]:.4f} ms; {R} x {c0} "
+        f"rows equal to the segmented twin word for word, to the sequential twin as points")
+    rec = check("suffix_sweep", got, want, ms, plain_ms, f"({R}, {W}, {C})", f"({R}, {W}, {c0})",
+                work, results, word_products(W))
+    return suf, seq, {**rec, "S": S, "rows_per_segment": L, "phase_ms": phase_ms}
+
+
+def k5_small(f, base_x, base_y, d1, g, clock_hz, results) -> list:
+    """K5 at the smaller MSMs' (R, C): ``k5_check`` at the S that
+    ``segments`` picks, then each S of K5_SMALL_S, timed (CUDA events, 20
+    calls); the S = 1 rows word for word equal to the sequential twin's,
+    every S's equal to them as points."""
     out = []
     for R, C in SIZES["k5_small"]:
-        x, y = row_tiled(base_x, base_y, R, C)
-        inf = (torch.rand((R, 1, C), generator=g, device=device) < 0.05).to(torch.int32)
+        x, y, inf = k5_rows(base_x, base_y, R, C, g)
         dc = tuple(_bcast(d1, (C,)))
-        plans = [cuda_msm.suffix_sweep_plan(f, x, y, inf, dc)]
-        plans += [cuda_msm.suffix_sweep_plan(f, x, y, inf, dc, S) for S in K5_SMALL_S]
-        ms = {}
-        for plan in plans:
+        _, seq, rec = k5_check(f, x, y, inf, dc, clock_hz, results)
+        ms = {rec["S"]: rec["ms"]}
+        for S in K5_SMALL_S:
+            plan = cuda_msm.suffix_sweep_plan(f, x, y, inf, dc, S)
             cuda_msm.run_plan(plan)
-            ms.setdefault(plan.S, cuda_ms(lambda plan=plan: cuda_msm.run_plan(plan), 20))
-        one = plans[1].outs
-        S = plans[0].S
-        if word_err(one, cuda_msm.suffix_sweep_plain(f, x, y, inf, dc)) != 0:
-            raise AssertionError(f"suffix_sweep at ({R}, {C}), S = 1: words differ "
-                                 f"from the sequential twin")
-        want, plain_ms = timed_once(
-            lambda: cuda_msm.suffix_sweep_segmented_plain(f, x, y, inf, dc, S))
-        if word_err(plans[0].outs, want):
-            raise AssertionError(f"suffix_sweep at ({R}, {C}), S = {S}: words differ "
-                                 f"from the segmented twin")
-        for plan in plans:
+            if S == 1 and word_err(plan.outs, seq) != 0:
+                raise AssertionError(f"suffix_sweep at ({R}, {C}), S = 1: words differ "
+                                     f"from the sequential twin")
             if not bool(same_points(f, tuple(t.permute(1, 0, 2) for t in plan.outs),
-                                    tuple(t.permute(1, 0, 2) for t in one)).all()):
-                raise AssertionError(f"suffix_sweep at ({R}, {C}): S = {plan.S} and S = 1 "
-                                     f"differ as points")
-        live = R * C - int(inf.sum())
-        bms, by = bound_ms(R * C * (32 + 32 + 4) + 4 * 32 * C + 4 * 32 * R * C,
-                           WORD_PRODUCTS * 10 * live, clock_hz)
-        log(f"[k5-small] ({R}, 8, {C}): picked S={S} {ms[S]:.4f} ms (plain {plain_ms:.4f} ms, "
-            f"bound {bms:.4f} ms, {by}); by S "
+                                    tuple(t.permute(1, 0, 2) for t in seq)).all()):
+                raise AssertionError(f"suffix_sweep at ({R}, {C}): S = {S} and the sequential "
+                                     f"twin differ as points")
+            ms.setdefault(S, cuda_ms(lambda plan=plan: cuda_msm.run_plan(plan), 20))
+        log(f"[k5-small] ({R}, 8, {C}): picked S={rec['S']} {rec['ms']:.4f} ms (plain "
+            f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms, {rec['bound_by']}); by S "
             + ", ".join(f"{k}: {v:.4f}" for k, v in sorted(ms.items())))
-        out.append({"shape": [R, 8, C], "S": S, "ms": ms[S], "plain_ms": plain_ms,
-                    "bound_ms": bms, "ms_by_S": {str(k): v for k, v in sorted(ms.items())}})
+        out.append({"shape": [R, 8, C], "S": rec["S"], "ms": rec["ms"],
+                    "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                    "ms_by_S": {str(k): v for k, v in sorted(ms.items())}})
     return out
 
 
@@ -518,7 +585,7 @@ def horner_check(curve, clock_hz, results, nwin: int, c: int) -> dict:
     its twin and the loop of K3 and K2 launches it replaces, its result
     against the host's point, timed beside that loop.  Returns check's
     numbers with the loop's time and the chain's length."""
-    f = curve.F.spec
+    f, W = curve.F.spec, curve.F.W
     wins, want_aff, muls = horner_windows(curve, nwin, c, SEED)
     got = cuda_ec.horner(f, wins, c)
     want, plain_ms = timed_once(lambda: cuda_ec.horner_plain(f, wins, c))
@@ -529,13 +596,13 @@ def horner_check(curve, clock_hz, results, nwin: int, c: int) -> dict:
         raise AssertionError("horner: the sum differs from the host's point")
     loop_ms = cuda_ms(lambda: horner_loop(f, wins, c), 20)
     ms = cuda_ms(lambda: cuda_ec.horner(f, wins, c), 20)
-    work = (4 * 32 * (nwin + 1), WORD_PRODUCTS * muls, clock_hz)
+    work = (4 * 4 * W * (nwin + 1), word_products(W) * muls, clock_hz)
     log(f"[horner] {nwin} windows, c = {c}: one launch {ms:.4f} ms, the loop of {c * nwin} K3 "
         f"and {nwin} K2 launches it replaces {loop_ms:.4f} ms; operations bound "
         f"{bound_ms(*work)[0]:.6f} ms; the floor is a serial chain of {c * nwin} doublings "
         f"and {nwin} adds: {muls} field multiplies in a row, {ms * 1e6 / muls:.1f} ns each")
-    rec = check("horner", got, want, ms, plain_ms, f"4 x (8, {nwin}), c = {c}",
-                f"4 x (8, {nwin}), c = {c}", work, results)
+    rec = check("horner", got, want, ms, plain_ms, f"4 x ({W}, {nwin}), c = {c}",
+                f"4 x ({W}, {nwin}), c = {c}", work, results, word_products(W))
     return {**rec, "k3_k2_loop_ms": loop_ms,
             "chain": {"doublings": c * nwin, "adds": nwin, "field_multiplies": muls}}
 
@@ -547,37 +614,153 @@ def lifted(f, x, y, lam):
     return (mont.mul(f, x, l2), mont.mul(f, y, l3), l2, l3)
 
 
+def k1_random_check(f, n: int, g, device, clock_hz, results) -> None:
+    """K1 on n random elements of f (some squares) against its twin, timed
+    beside its bound."""
+    W = limbs.word_count(f)
+    a, b = random_elements(f, n, g, device), random_elements(f, n, g, device)
+    a[:, 3:6] = b[:, 3:6]  # some squares
+    got = cuda_mont.mul(f, a, b)
+    want = cuda_mont.mul_plain(f, a, b)
+    torch.cuda.synchronize()
+    check("mont_mul", (got,), (want,), cuda_ms(lambda: cuda_mont.mul(f, a, b), 20),
+          cuda_ms(lambda: cuda_mont.mul_plain(f, a, b), 2), f"{f.name} ({W}, {n})",
+          f"{f.name} ({W}, {n})", (3 * 4 * W * n, word_products(W) * n, clock_hz), results,
+          word_products(W))
+
+
+def k1_edges_check(f, device, extra=None) -> None:
+    """K1 on its edge operands (0, 1, mont(1), 2, p - 1 pairwise), then the
+    operands ``extra`` if given, word for word against its twin."""
+    a, b = k1_edges(f, device)
+    if extra is not None:
+        a, b = torch.cat([a, extra[0]], 1), torch.cat([b, extra[1]], 1)
+    err = word_err((cuda_mont.mul(f, a, b),), (cuda_mont.mul_plain(f, a, b),))
+    log(f"[k1-edges] {f.name}: {a.shape[1]} products (0, 1, mont(1), 2, p - 1 pairwise"
+        f"{', then random' if extra is not None else ''}) max_abs_err {err}")
+    if err != 0:
+        raise AssertionError(f"mont_mul: {f.name} edge operands differ from the plain twin")
+
+
 def k1_check(fq, fr, g, device, clock_hz, results) -> None:
     """K1 at both main paths' shapes against its twin; its edge operands and
     a full-width field word for word; its host cost per call."""
     # K1 on 2^22 Fq and 2^16 Fr elements
     for f, n in ((fq, SIZES["k1_fq"]), (fr, SIZES["k1_fr"])):
-        a, b = random_elements(f, n, g, device), random_elements(f, n, g, device)
-        a[:, 3:6] = b[:, 3:6]  # some squares
-        got = cuda_mont.mul(f, a, b)
-        want = cuda_mont.mul_plain(f, a, b)
-        torch.cuda.synchronize()
-        check("mont_mul", (got,), (want,), cuda_ms(lambda: cuda_mont.mul(f, a, b), 20),
-              cuda_ms(lambda: cuda_mont.mul_plain(f, a, b), 2), f"{f.name} (8, {n})",
-              f"{f.name} (8, {n})", (3 * 32 * n, WORD_PRODUCTS * n, clock_hz), results)
-        del want
+        k1_random_check(f, n, g, device, clock_hz, results)
     # edge operands word for word, and a full-width p (secp256k1's Fq), which
     # takes the 64-bit CIOS form of the multiply
     secp = presets.SECP256K1_FQ
-    for f in (fq, fr, secp):
-        a, b = k1_edges(f, device)
-        if f is secp:
-            a = torch.cat([a, random_elements(f, SIZES["k1_fr"], g, device)], 1)
-            b = torch.cat([b, random_elements(f, SIZES["k1_fr"], g, device)], 1)
-        err = word_err((cuda_mont.mul(f, a, b),), (cuda_mont.mul_plain(f, a, b),))
-        log(f"[k1-edges] {f.name}: {a.shape[1]} products (0, 1, mont(1), 2, p - 1 pairwise"
-            f"{', then random' if f is secp else ''}) max_abs_err {err}")
-        if err != 0:
-            raise AssertionError(f"mont_mul: {f.name} edge operands differ from the plain twin")
+    k1_edges_check(fq, device)
+    k1_edges_check(fr, device)
+    k1_edges_check(secp, device, tuple(random_elements(secp, SIZES["k1_fr"], g, device)
+                                       for _ in range(2)))
     wrapper_us, launcher_us = k1_call_us(fr, device)
     log(f"[k1-call] {K1_CALLS} calls at n = 1, back to back: the wrapper {wrapper_us:.2f} us "
         f"per call, its ctypes launcher alone {launcher_us:.2f} us")
     results["mont_mul_call_us"] = {"wrapper": wrapper_us, "launcher": launcher_us}
+
+
+def k2_check(f, base_x, base_y, n: int, clock_hz, results):
+    """K2 on n lanes with P = Q, P = -Q and infinity lanes (``k2_inputs``)
+    against its twin, timed; returns its output."""
+    W = limbs.word_count(f)
+    p, q, muls = k2_inputs(f, base_x, base_y, n)
+    lane = torch.arange(n, device=base_x.device)
+    got = cuda_ec.add_xyzz(f, p, q)
+    want = cuda_ec.add_xyzz_plain(f, p, q)
+    if not bool(mont.is_zero(f, got[2])[lane % 7 == 2].all()):
+        raise AssertionError("add_xyzz: P + (-P) is not infinity")
+    ms = cuda_ms(lambda: cuda_ec.add_xyzz(f, p, q), 20)
+    results.setdefault("add_xyzz_by_width", {})[str(n)] = ms
+    check("add_xyzz", got, want, ms,
+          cuda_ms(lambda: cuda_ec.add_xyzz_plain(f, p, q), 2), f"4 x ({W}, {n})",
+          f"4 x ({W}, {n})", (12 * 4 * W * n, word_products(W) * muls, clock_hz), results,
+          word_products(W))
+    return got
+
+
+def k3_check(f, pts, n3: int, clock_hz, results) -> None:
+    """K3 on the first n3 lanes of ``pts``, every fifth at infinity (the
+    standalone double; Horner's doublings run in the Horner kernel)."""
+    W = limbs.word_count(f)
+    lane = torch.arange(n3, device=pts[0].device)
+    d_in = tuple(mont.select(lane % 5 == 0, torch.zeros_like(t[:, :n3]), t[:, :n3].contiguous())
+                 for t in pts)
+    got3 = cuda_ec.dbl_xyzz(f, d_in)
+    want3 = cuda_ec.dbl_xyzz_plain(f, d_in)
+    live3 = int((~mont.is_zero(f, d_in[2])).sum())
+    check("dbl_xyzz", got3, want3, cuda_ms(lambda: cuda_ec.dbl_xyzz(f, d_in), 20),
+          cuda_ms(lambda: cuda_ec.dbl_xyzz_plain(f, d_in), 2), f"4 x ({W}, {n3})",
+          f"4 x ({W}, {n3})", (8 * 4 * W * n3, word_products(W) * 9 * live3, clock_hz), results,
+          word_products(W))
+
+
+def k4_check(f, base_x, base_y, n4: int, g, clock_hz, results) -> None:
+    """K4 on n4 lanes: P lifted with zz != 1; lanes by lane % 7: 1 P = Q,
+    2 P = -Q, 3 p = inf, 4 q = inf, 5 both inf, else generic."""
+    W, device = limbs.word_count(f), base_x.device
+    lane4 = torch.arange(n4, device=device)
+    ax, ay = tile(base_x, n4), tile(base_y, n4)
+    lam = random_elements(f, n4, g, device)
+    lam = mont.select(mont.is_zero(f, lam), mont.ones(f, (n4,), device), lam)
+    p4 = lifted(f, ax, ay, lam)
+    cls4 = lane4 % 7
+    qx = mont.select((cls4 == 1) | (cls4 == 2), ax, torch.roll(ax, 1, dims=1))
+    qy = mont.select(cls4 == 1, ay, torch.roll(ay, 1, dims=1))
+    qy = mont.select(cls4 == 2, mont.neg(f, ay), qy)
+    qinf = (cls4 == 4) | (cls4 == 5)
+    p4 = tuple(mont.select((cls4 == 3) | (cls4 == 5), torch.zeros_like(t), t) for t in p4)
+    del lam, ax, ay
+    got4 = cuda_ec.madd_xyzz(f, p4, qx, qy, qinf)
+    want4 = cuda_ec.madd_xyzz_plain(f, p4, qx, qy, qinf)
+    if not bool(mont.is_zero(f, got4[2])[(cls4 == 2) | (cls4 == 5)].all()):
+        raise AssertionError("madd_xyzz: P + (-P) or inf + inf is not infinity")
+    if not bool((got4[2][:, cls4 == 3] == mont.ones(f, (1,), device)).all()):
+        raise AssertionError("madd_xyzz: inf + Q does not lift Q with zz = mont(1)")
+    # 10 multiplies for a mixed add, 2 + 9 where P = Q, 2 where P = -Q
+    c4 = torch.bincount(cls4, minlength=7).tolist()
+    muls4 = 10 * (c4[0] + c4[6]) + 11 * c4[1] + 2 * c4[2]
+    eb = 4 * W  # bytes an element
+    check("madd_xyzz", got4, want4, cuda_ms(lambda: cuda_ec.madd_xyzz(f, p4, qx, qy, qinf), 20),
+          cuda_ms(lambda: cuda_ec.madd_xyzz_plain(f, p4, qx, qy, qinf), 2),
+          f"4 x ({W}, {n4}) + 2 x ({W}, {n4}) + ({n4},)", f"({W}, {n4})",
+          ((6 * eb + 4 + 4 * eb) * n4, word_products(W) * muls4, clock_hz), results,
+          word_products(W))
+
+
+def ladder_check(curve, base_x, base_y, nl: int, nchk: int, g, clock_hz, results) -> None:
+    """The fused ladder on nl lanes: P = G, but the odd lanes from 8 on take
+    base point lane % 256; some lanes with P at infinity, scalars 0, 1 and
+    r - 1 in lanes 0-2, the rest random below 2^(bits - 1); its plain twin
+    on the first nchk lanes, host ints on lanes 0-15."""
+    f, fr, W, device = curve.F.spec, curve.SF.spec, curve.F.W, base_x.device
+    gen = curve.generator((nl,))
+    lane_l = torch.arange(nl, device=device)
+    other = (lane_l % 2 == 1) & (lane_l >= 8)
+    px = mont.select(other, tile(base_x, nl), gen.x)
+    py = mont.select(other, tile(base_y, nl), gen.y)
+    del gen
+    sc = random_elements(fr, nl, g, device)
+    pinf = (lane_l % 1021 == 5) | (lane_l == 6)
+    got_l = cuda_ec.scalar_mul(f, px, py, pinf, sc)
+    want_l, plain_l = timed_once(lambda: cuda_ec.scalar_mul_plain(
+        f, px[:, :nchk], py[:, :nchk], pinf[:nchk], sc[:, :nchk]))
+    nh = 16
+    aff = curve.to_affine(PointXYZZ(*(t[:, :nh].contiguous() for t in got_l)))
+    ps = zip(curve.F.decode(px[:, :nh]), curve.F.decode(py[:, :nh]))
+    ks = limbs.words_to_ints(sc[:, :nh].cpu().numpy().view(np.uint32))
+    want_aff = [None if bool(pinf[i]) else host_ec.scalar_mul((int(a), int(b)), k, 0, curve.F.p)
+                for i, ((a, b), k) in enumerate(zip(ps, ks))]
+    if sampled_points(curve, aff, list(range(nh))) != want_aff:
+        raise AssertionError(f"scalar_mul: lanes 0-{nh - 1} (0, 1, r - 1, P = inf, P != G) "
+                             f"differ from host ints")
+    eb, Ws = 4 * W, sc.shape[0]
+    check("scalar_mul_xyzz", tuple(t[:, :nchk] for t in got_l), want_l,
+          cuda_ms(lambda: cuda_ec.scalar_mul(f, px, py, pinf, sc), 3), plain_l,
+          f"2 x ({W}, {nl}) + ({nl},) + ({Ws}, {nl})", f"({W}, {nchk})",
+          ((2 * eb + 4 + 4 * Ws + 4 * eb) * nl, word_products(W) * ladder_muls(sc, pinf),
+           clock_hz), results, word_products(W))
 
 
 def phase_kernels(device, base_x, base_y, clock_hz, results):
@@ -592,97 +775,18 @@ def phase_kernels(device, base_x, base_y, clock_hz, results):
     # recorded), then at the former T-gather width at c = 17, 2^17 - 1
     # lanes; with P = Q, P = -Q and infinity lanes
     for n in SIZES["k2"]:
-        p, q, muls = k2_inputs(fq, base_x, base_y, n)
-        lane = torch.arange(n, device=device)
-        zero = torch.zeros_like(p[0])
-        got = cuda_ec.add_xyzz(fq, p, q)
-        want = cuda_ec.add_xyzz_plain(fq, p, q)
-        if not bool(mont.is_zero(fq, got[2])[lane % 7 == 2].all()):
-            raise AssertionError("add_xyzz: P + (-P) is not infinity")
-        ms = cuda_ms(lambda: cuda_ec.add_xyzz(fq, p, q), 20)
-        results.setdefault("add_xyzz_by_width", {})[str(n)] = ms
-        check("add_xyzz", got, want, ms,
-              cuda_ms(lambda: cuda_ec.add_xyzz_plain(fq, p, q), 2), f"4 x (8, {n})",
-              f"4 x (8, {n})", (12 * 32 * n, WORD_PRODUCTS * muls, clock_hz), results)
-
-    # K3 on 4096 lanes, with infinity lanes (the standalone double; Horner's
-    # doublings run in the Horner kernel, below)
-    n3 = SIZES["k3"]
-    d_in = tuple(mont.select(lane[:n3] % 5 == 0, zero[:, :n3], t[:, :n3].contiguous())
-                 for t in got)
-    got3 = cuda_ec.dbl_xyzz(fq, d_in)
-    want3 = cuda_ec.dbl_xyzz_plain(fq, d_in)
-    live3 = int((~mont.is_zero(fq, d_in[2])).sum())
-    check("dbl_xyzz", got3, want3, cuda_ms(lambda: cuda_ec.dbl_xyzz(fq, d_in), 20),
-          cuda_ms(lambda: cuda_ec.dbl_xyzz_plain(fq, d_in), 2), f"4 x (8, {n3})",
-          f"4 x (8, {n3})", (8 * 32 * n3, WORD_PRODUCTS * 9 * live3, clock_hz), results)
+        got = k2_check(fq, base_x, base_y, n, clock_hz, results)
+    k3_check(fq, got, SIZES["k3"], clock_hz, results)
 
     # Horner at the 2^22 MSM's windows and c (recorded), then the 2^18 paths'
     main = horner_check(curve, clock_hz, results, *SIZES["horner"])
     results["horner_loop_ms"], results["horner_chain"] = main["k3_k2_loop_ms"], main["chain"]
     results["horner_2^18"] = horner_check(curve, clock_hz, results, *SIZES["horner_2^18"])
 
-    # K4 on 2^20 lanes (scalar_mul's width in the KZG setup): P lifted with
-    # zz != 1; lanes by lane % 7: 1 P = Q, 2 P = -Q, 3 p = inf, 4 q = inf,
-    # 5 both inf, else generic.
-    n4 = SIZES["k4"]
-    lane4 = torch.arange(n4, device=device)
-    ax, ay = tile(base_x, n4), tile(base_y, n4)
-    lam = random_elements(fq, n4, g, device)
-    lam = mont.select(mont.is_zero(fq, lam), mont.ones(fq, (n4,), device), lam)
-    p4 = lifted(fq, ax, ay, lam)
-    cls4 = lane4 % 7
-    qx = mont.select((cls4 == 1) | (cls4 == 2), ax, torch.roll(ax, 1, dims=1))
-    qy = mont.select(cls4 == 1, ay, torch.roll(ay, 1, dims=1))
-    qy = mont.select(cls4 == 2, mont.neg(fq, ay), qy)
-    qinf = (cls4 == 4) | (cls4 == 5)
-    p4 = tuple(mont.select((cls4 == 3) | (cls4 == 5), torch.zeros_like(t), t) for t in p4)
-    del lam, ax, ay
-    got4 = cuda_ec.madd_xyzz(fq, p4, qx, qy, qinf)
-    want4 = cuda_ec.madd_xyzz_plain(fq, p4, qx, qy, qinf)
-    if not bool(mont.is_zero(fq, got4[2])[(cls4 == 2) | (cls4 == 5)].all()):
-        raise AssertionError("madd_xyzz: P + (-P) or inf + inf is not infinity")
-    if not bool((got4[2][:, cls4 == 3] == mont.ones(fq, (1,), device)).all()):
-        raise AssertionError("madd_xyzz: inf + Q does not lift Q with zz = mont(1)")
-    # 10 multiplies for a mixed add, 2 + 9 where P = Q, 2 where P = -Q
-    c4 = torch.bincount(cls4, minlength=7).tolist()
-    muls4 = 10 * (c4[0] + c4[6]) + 11 * c4[1] + 2 * c4[2]
-    check("madd_xyzz", got4, want4, cuda_ms(lambda: cuda_ec.madd_xyzz(fq, p4, qx, qy, qinf), 20),
-          cuda_ms(lambda: cuda_ec.madd_xyzz_plain(fq, p4, qx, qy, qinf), 2),
-          f"4 x (8, {n4}) + 2 x (8, {n4}) + ({n4},)", f"(8, {n4})",
-          ((6 * 32 + 4 + 4 * 32) * n4, WORD_PRODUCTS * muls4, clock_hz), results)
-    del p4, qx, qy, got4, want4
-
-    # The fused ladder at 2^20 lanes (the setup's width): P = G, but the odd
-    # lanes from 8 on take base point lane % 256; some lanes with P at
-    # infinity, scalars 0, 1 and r - 1 in lanes 0-2, the rest random below
-    # 2^253; its plain twin on the first lanes, host ints on lanes 0-15.
-    nl, nchk = SIZES["ladder"]
-    gen = curve.generator((nl,))
-    lane_l = torch.arange(nl, device=device)
-    other = (lane_l % 2 == 1) & (lane_l >= 8)
-    px = mont.select(other, tile(base_x, nl), gen.x)
-    py = mont.select(other, tile(base_y, nl), gen.y)
-    del gen
-    sc = random_elements(fr, nl, g, device)
-    pinf = (lane_l % 1021 == 5) | (lane_l == 6)
-    got_l = cuda_ec.scalar_mul(fq, px, py, pinf, sc)
-    want_l, plain_l = timed_once(lambda: cuda_ec.scalar_mul_plain(
-        fq, px[:, :nchk], py[:, :nchk], pinf[:nchk], sc[:, :nchk]))
-    nh = 16
-    aff = curve.to_affine(PointXYZZ(*(t[:, :nh].contiguous() for t in got_l)))
-    ps = zip(curve.F.decode(px[:, :nh]), curve.F.decode(py[:, :nh]))
-    ks = limbs.words_to_ints(sc[:, :nh].cpu().numpy().view(np.uint32))
-    want_aff = [None if bool(pinf[i]) else host_ec.scalar_mul((int(a), int(b)), k, 0, curve.F.p)
-                for i, ((a, b), k) in enumerate(zip(ps, ks))]
-    if sampled_points(curve, aff, list(range(nh))) != want_aff:
-        raise AssertionError(f"scalar_mul: lanes 0-{nh - 1} (0, 1, r - 1, P = inf, P != G) "
-                             f"differ from host ints")
-    check("scalar_mul_xyzz", tuple(t[:, :nchk] for t in got_l), want_l,
-          cuda_ms(lambda: cuda_ec.scalar_mul(fq, px, py, pinf, sc), 3), plain_l,
-          f"2 x (8, {nl}) + ({nl},) + (8, {nl})", f"(8, {nchk})",
-          ((2 * 32 + 4 + 32 + 4 * 32) * nl, WORD_PRODUCTS * ladder_muls(sc, pinf), clock_hz), results)
-    del px, py, sc, got_l, aff
+    # K4 on 2^20 lanes (scalar_mul's width in the KZG setup), then the fused
+    # ladder at 2^20 lanes (the setup's width)
+    k4_check(fq, base_x, base_y, SIZES["k4"], g, clock_hz, results)
+    ladder_check(curve, base_x, base_y, *SIZES["ladder"], g, clock_hz, results)
 
     # K5 at R = 1024, C = 4096 (2^22 points) with infinity lanes; row r of
     # lane c holds base point (c + r) % 256.  Lanes 0-3 hold one point on
@@ -691,11 +795,9 @@ def phase_kernels(device, base_x, base_y, clock_hz, results):
     # top segments with sums equal (the carry doubles).
     R, C, r0, c0 = SIZES["k5"]
     (d1, _), (d2, _) = _blind_points(curve)
-    x, y = row_tiled(base_x, base_y, R, C, fixed=4)
-    inf = (torch.rand((R, 1, C), generator=g, device=device) < 0.05).to(torch.int32)
+    x, y, inf = k5_rows(base_x, base_y, R, C, g, fixed=4)
     dc = tuple(_bcast(d1, (C,)))
-    plan = cuda_msm.suffix_sweep_plan(fq, x, y, inf, dc)
-    S = plan.S
+    S = cuda_msm.suffix_sweep_plan(fq, x, y, inf, dc).S
     L = -(-R // S)
     top = (S - 1) * L  # first row of the top (ragged) segment
     if S < 3 or R - top < r0:
@@ -705,47 +807,24 @@ def phase_kernels(device, base_x, base_y, clock_hz, results):
     inf[:, 0, 2] = 1
     inf[top - L:, 0, 3] = 0
     inf[top - L:top - L + (L - (R - top)), 0, 3] = 1
-    suf = cuda_msm.suffix_sweep(fq, x, y, inf, dc)
-    sl = (slice(None), slice(None), slice(0, c0))
-    xs, ys, infs = x[sl].contiguous(), y[sl].contiguous(), inf[sl].contiguous()
-    ds = tuple(t[:, :c0].contiguous() for t in dc)
-    want5, plain5 = timed_once(lambda: cuda_msm.suffix_sweep_segmented_plain(
-        fq, xs, ys, infs, ds, S))
-    seq5 = cuda_msm.suffix_sweep_plain(fq, xs, ys, infs, ds)
-    got5 = tuple(t[sl] for t in suf)
-    same = same_points(fq, tuple(t.permute(1, 0, 2) for t in got5),
-                       tuple(t.permute(1, 0, 2) for t in seq5)).view(R, c0)
-    if not bool(same.all()):
-        bad = same.logical_not().nonzero()[:4].tolist()
-        raise AssertionError(f"suffix_sweep: rows differ as points from the sequential twin "
-                             f"at (row, lane) {bad}")
+    suf, seq5, rec = k5_check(fq, x, y, inf, dc, clock_hz, results, c0, reps=3)
+    got5 = tuple(t[:, :, :c0] for t in suf)
     if word_err(tuple(t[top:] for t in got5), tuple(t[top:] for t in seq5)) != 0:
         raise AssertionError("suffix_sweep: the top segment's words differ from the sequential twin")
     want_top = cuda_msm.suffix_sweep_plain(fq, x[R - r0:], y[R - r0:], inf[R - r0:], dc)
     if word_err(tuple(t[R - r0:] for t in suf), want_top) != 0:
         raise AssertionError(f"suffix_sweep: the top {r0} rows differ from the sequential twin")
     moved = sum(int((a != b).any(dim=1).sum()) for a, b in zip(got5, seq5))
-    phase_ms = [cuda_ms(lambda a=args, nm=name: _build.launch(nm, *a), 3)
-                for name, args in plan.launches]
-    live5 = R * C - int(inf.sum())
-    k5_ms = cuda_ms(lambda: cuda_msm.suffix_sweep(fq, x, y, inf, dc), 3)
-    work5 = (R * C * (32 + 32 + 4) + 4 * 32 * C + 4 * 32 * R * C, WORD_PRODUCTS * 10 * live5, clock_hz)
-    log(f"[k5] S={S} segments of {L} rows (top {R - top}); totals {phase_ms[0]:.4f} ms, "
-        f"carries {phase_ms[1]:.4f} ms, emit {phase_ms[2]:.4f} ms; whole {k5_ms:.4f} ms "
-        f"(before the redesign {K5_OLD_MS} ms, bound {bound_ms(*work5)[0]:.4f} ms); "
-        f"{R} x {c0} rows equal as points to the sequential twin, {moved} coordinate rows "
-        f"with other words")
-    results["suffix_sweep_phases"] = {"S": S, "rows_per_segment": L, "phase_ms": phase_ms,
+    log(f"[k5] top segment {R - top} rows; before the redesign {K5_OLD_MS} ms; {moved} "
+        f"coordinate rows with other words than the sequential twin's")
+    results["suffix_sweep_phases"] = {"S": S, "rows_per_segment": L, "phase_ms": rec["phase_ms"],
                                       "small_shapes": k5_small(fq, base_x, base_y, d1, g,
-                                                               device, clock_hz)}
-    check("suffix_sweep", got5, want5, k5_ms, plain5, f"({R}, 8, {C})", f"({R}, 8, {c0})",
-          work5, results)
-    del plan
+                                                               clock_hz, results)}
 
     # K6 at the two main paths' (R2, C2), with its segment sweep, over XYZZ
     # rows cut from the suffix sums; then the lane scan and fold over lanes
     # cut from them
-    k6_check(fq, suf, d2, g, clock_hz, results)
+    results["reduce_sweep_segments"] = k6_check(fq, suf, d2, g, clock_hz, results)
     (_, nd1), (_, nd2) = _blind_points(curve)
     for C in SIZES["scan"]:
         lane_check(fq, "lane_suffix_scan", suf, C, tuple(nd1), g, clock_hz, results)
@@ -777,21 +856,23 @@ def k6_rows(suf, R: int, C: int, L: int, g):
 def k6_work(rows, clock_hz):
     """K6's bytes (rows and D read, the totals written) and the field
     multiplies its live rows need (14 each)."""
-    R, _, C = rows[0].shape
+    R, W, C = rows[0].shape
     live = int((rows[2] != 0).any(dim=1).sum())  # zz != 0
-    return (4 * 32 * R * C + 2 * 4 * 32 * C, WORD_PRODUCTS * 14 * live, clock_hz)
+    return (4 * 4 * W * R * C + 2 * 4 * 4 * W * C, word_products(W) * 14 * live, clock_hz)
 
 
-def k6_check(f, suf, d2, g, clock_hz, results) -> None:
-    """K6 at each (R, C) of SIZES["k6"] at the segment count it picks: word
-    for word against the segmented twin, as points against the sequential
-    twin, each phase timed, the chain combine (one thread per lane) timed
-    as the tree's rival; then every S of K6_S at SIZES["k6_sweep"]."""
+def k6_check(f, suf, d2, g, clock_hz, results, shapes=None, sweep=True) -> dict:
+    """K6 at each (R, C) of ``shapes`` (SIZES["k6"]) at the segment count it
+    picks: word for word against the segmented twin, as points against the
+    sequential twin, each phase timed, the chain combine (one thread per
+    lane) timed as the tree's rival; then, with ``sweep``, every S of K6_S
+    at SIZES["k6_sweep"].  Returns the per-shape numbers."""
+    W = suf[0].shape[1]
     sms = torch.cuda.get_device_properties(suf[0].device).multi_processor_count
     lib = _build.library()
     threads = lib.tt_reduce_sweep_threads()
     info = {"shapes": []}
-    for R, C in SIZES["k6"]:
+    for R, C in shapes or SIZES["k6"]:
         S = cuda_msm.reduce_segments(R, C, sms, threads)
         L = -(-R // S)
         F = cuda_msm.combine_fan(S, lib.tt_reduce_combine_threads())
@@ -802,7 +883,7 @@ def k6_check(f, suf, d2, g, clock_hz, results) -> None:
             lambda: cuda_msm.reduce_sweep_segmented_plain(f, rows, dc, S, F))
         seq = cuda_msm.reduce_sweep_plain(f, rows, dc)
         if not bool(same_points(f, got, seq).all()):
-            raise AssertionError(f"reduce_sweep at ({R}, 8, {C}): totals differ as points "
+            raise AssertionError(f"reduce_sweep at ({R}, {W}, {C}): totals differ as points "
                                  f"from the sequential twin")
         plan = cuda_msm.reduce_sweep_plan(f, rows, dc)
         phase_ms = [cuda_ms(lambda a=args, nm=name: _build.launch(nm, *a), 20)
@@ -812,29 +893,31 @@ def k6_check(f, suf, d2, g, clock_hz, results) -> None:
             chain = cuda_msm.reduce_sweep_plan(f, rows, dc, S, 1)
             cuda_msm.run_plan(chain)
             if not bool(same_points(f, chain.outs, seq).all()):
-                raise AssertionError(f"reduce_sweep at ({R}, 8, {C}): the chain combine's "
+                raise AssertionError(f"reduce_sweep at ({R}, {W}, {C}): the chain combine's "
                                      f"totals differ as points from the sequential twin")
             combine, combine_args = chain.launches[1]
             chain_ms = cuda_ms(lambda: _build.launch(combine, *combine_args), 20)
         k6_ms = cuda_ms(lambda: cuda_msm.reduce_sweep(f, rows, dc), 20)
         work = k6_work(rows, clock_hz)
-        log(f"[k6] ({R}, 8, {C}): S={plan.S} segments of {L} rows, F={F} "
+        log(f"[k6] ({R}, {W}, {C}): S={plan.S} segments of {L} rows, F={F} "
             f"threads per lane; each launch (partials, then the tree combine) {phase_ms} ms, "
             f"the chain combine {chain_ms} ms; whole {k6_ms:.4f} ms (one thread per lane "
             f"before: {K6_OLD_MS} ms at (256, 8, 512); bound {bound_ms(*work)[0]:.4f} ms); "
             f"equal to the segmented twin word for word, to the sequential twin as points")
-        info["shapes"].append({"shape": [R, 8, C], "S": plan.S, "phase_ms": phase_ms,
+        info["shapes"].append({"shape": [R, W, C], "S": plan.S, "phase_ms": phase_ms,
                                "chain_combine_ms": chain_ms, "ms": k6_ms})
-        check("reduce_sweep", got, want, k6_ms, plain_ms, f"({R}, 8, {C})", f"({R}, 8, {C})",
-              work, results)
+        check("reduce_sweep", got, want, k6_ms, plain_ms, f"({R}, {W}, {C})",
+              f"({R}, {W}, {C})", work, results, word_products(W))
     # no rows (the last shape's lanes): D itself, with no launch
     n = cuda_msm.reduce_sweep.launches
     if word_err(cuda_msm.reduce_sweep(f, tuple(t[:0] for t in rows), dc), dc) != 0:
         raise AssertionError("reduce_sweep with no rows: the totals are not D")
     if cuda_msm.reduce_sweep.launches != n:
         raise AssertionError("reduce_sweep with no rows launched a kernel")
-    info["sweep"] = [k6_sweep(f, suf, d2, R, C, sms, threads, g) for R, C in SIZES["k6_sweep"]]
-    results["reduce_sweep_segments"] = info
+    if sweep:
+        info["sweep"] = [k6_sweep(f, suf, d2, R, C, sms, threads, g)
+                         for R, C in SIZES["k6_sweep"]]
+    return info
 
 
 def k6_sweep(f, suf, d2, R: int, C: int, sms: int, threads: int, g) -> dict:
@@ -936,6 +1019,7 @@ def lane_check(f, name: str, suf, C: int, bias, g, clock_hz, results) -> None:
     then without a bias against its twin and the loop of K2 launches it
     replaces, timed beside that loop."""
     wrapper, _, _ = KERNELS[name]
+    W, wp = suf[0].shape[1], word_products(suf[0].shape[1])
     twin = cuda_ec.lane_suffix_scan_plain if name == "lane_suffix_scan" else cuda_ec.lane_fold_plain
     eq, neg = ((10, 11), (20, 21)) if name == "lane_suffix_scan" else ((7, 7 + C // 2),
                                                                         (9, 9 + C // 2))
@@ -948,7 +1032,7 @@ def lane_check(f, name: str, suf, C: int, bias, g, clock_hz, results) -> None:
     # (whose sum is infinity)
     biased_adds = int(fin.sum()) + lane_adds(name, torch.ones_like(fin))[0] + (
         C - 1 if name == "lane_suffix_scan" else 0)
-    work = (4 * 32 * (C + out_pts + 1), WORD_PRODUCTS * 14 * biased_adds, clock_hz)
+    work = (4 * 4 * W * (C + out_pts + 1), wp * 14 * biased_adds, clock_hz)
 
     def call(b=None):
         return wrapper(f, u, bias=b)
@@ -963,23 +1047,23 @@ def lane_check(f, name: str, suf, C: int, bias, g, clock_hz, results) -> None:
     log(f"[lanes] {name} C={C} with a bias: one launch {ms:.4f} ms, the unbiased kernel "
         f"between K2 launches {k2_path_ms:.4f} ms")
     results.setdefault(f"{name}_k2_path_ms", k2_path_ms)
-    check(name, got, want, ms, plain_ms, f"4 x (8, {C}) + bias 4 x (8,)",
-          f"4 x (8, {C}) + bias 4 x (8,)", work, results)
+    check(name, got, want, ms, plain_ms, f"4 x ({W}, {C}) + bias 4 x ({W},)",
+          f"4 x ({W}, {C}) + bias 4 x ({W},)", work, results, wp)
 
     got = call()
     want = twin(f, u)
     if word_err(got, k2_steps(f, name, u)) != 0:
         raise AssertionError(f"{name} at C = {C}: words differ from the K2 loop it replaces")
     steps_ms = cuda_ms(lambda: k2_steps(f, name, u), 20)
-    work = (4 * 32 * (C + out_pts), WORD_PRODUCTS * 14 * adds, clock_hz)
+    work = (4 * 4 * W * (C + out_pts), wp * 14 * adds, clock_hz)
     ms = cuda_ms(call, 20)
     log(f"[lanes] {name} C={C}: one launch {ms:.4f} ms, the loop of K2 launches and shifts it "
         f"replaces {steps_ms:.4f} ms; {adds} adds of finite points needed, {sched} made in "
-        f"its order (bound at those: {bound_ms(work[0], WORD_PRODUCTS * 14 * sched, clock_hz)[0]:.4f} ms)")
+        f"its order (bound at those: {bound_ms(work[0], wp * 14 * sched, clock_hz)[0]:.4f} ms)")
     results.setdefault(f"{name}_before_ms", steps_ms)
     results.setdefault(f"{name}_schedule_adds", sched)
-    check(name, got, want, ms, cuda_ms(lambda: twin(f, u), 2), f"4 x (8, {C})", f"4 x (8, {C})",
-          work, results)
+    check(name, got, want, ms, cuda_ms(lambda: twin(f, u), 2), f"4 x ({W}, {C})",
+          f"4 x ({W}, {C})", work, results, wp)
 
 
 def add_muls(f, p, q) -> tuple[int, dict]:
@@ -1067,23 +1151,24 @@ def bucket_check(f, suf, g, clock_hz, results, B: int, C2: int) -> tuple[dict, d
     # bytes: pos, the T points and W'' lanes the buckets read, the rows out
     t_pts = int(torch.unique(k).numel())
     lanes = int(torch.unique(c).numel())
-    nbytes = 4 * (B - 1) + 4 * 32 * (t_pts + lanes) + 4 * 32 * B
+    nbytes = 4 * (B - 1) + 4 * 4 * W * (t_pts + lanes) + 4 * 4 * W * B
     # the 32-byte sectors of the loads: word i of T[r, :, c] is element
     # (r W + i) C + c of a coordinate, 8 to a sector
     words = (r * W)[None] * C + torch.arange(W, device=k.device)[:, None] * C + c[None]
     sectors = {"t": 4 * int(torch.unique(words // 8).numel()),
                "wpp": 4 * int(torch.unique((torch.arange(W, device=k.device)[:, None] * C
                                             + c[None]) // 8).numel()),
-               "pos": -(-4 * (B - 1) // 32), "out": 4 * 32 * B // 32}
+               "pos": -(-4 * (B - 1) // 32), "out": 4 * 4 * W * B // 32}
     ms = cuda_ms(lambda: cuda_msm.bucket_add(f, t, wpp, pos, C2), 20)
     k2_path_ms = cuda_ms(lambda: bucket_k2_path(f, t, wpp, pos, C2), 20)
-    work = (nbytes, WORD_PRODUCTS * muls, clock_hz)
+    work = (nbytes, word_products(W) * muls, clock_hz)
     log(f"[bucket] B={B} buckets from T ({R}, {W}, {C}) into ({B // C2}, {W}, {C2}) rows: one "
         f"launch {ms:.4f} ms, the gathers, K2 and glue it replaces {k2_path_ms:.4f} ms; cases "
         f"{cases}, {int((~valid).sum())} absent digits; {nbytes} bytes needed, the loads touch "
         f"{sectors} 32-byte sectors ({32 * sum(sectors.values())} bytes)")
     shape = f"4 x ({R}, {W}, {C}) + 4 x ({W}, {C}) + ({B - 1},) -> 4 x ({B // C2}, {W}, {C2})"
-    rec = check("bucket_add", got, want, ms, plain_ms, shape, shape, work, results)
+    rec = check("bucket_add", got, want, ms, plain_ms, shape, shape, work, results,
+                word_products(W))
     return rec, {"k2_path_ms": k2_path_ms, "cases": cases, "sectors": sectors,
                  "sector_bytes": 32 * sum(sectors.values())}
 
@@ -1117,6 +1202,7 @@ KZG_K2 = 2 * 6 + 1
 def reset_launches() -> None:
     for wrapper, _, _ in KERNELS.values():
         wrapper.launches = 0
+        wrapper.launches_by_w = {}
 
 
 def read_launches(path) -> dict:
@@ -1767,13 +1853,166 @@ def phase_stark(device, clock_hz, results):
     return {k: pcs_launches[k] + air_launches[k] for k in pcs_launches}
 
 
+
+# phase 9, the BLS12-381 path: the native Groth16 prover over BLS12-381 (Fq of
+# 381 bits, 12 words; Fr of 255 bits, 8 words) on a square chain of
+# 2^BLS_LOG_N constraints, the domain of a Zcash Sapling Spend circuit (~100k
+# constraints); the W = 12 kernels checked at its shapes first
+BLS_LOG_N = 17
+BLS_SAMPLES = 64  # a_query and b2_query points checked on their curves
+BLS_SIZES = {
+    "k1": 1 << 22,              # K1 elements of Fq
+    "point": 1 << 20,           # K2, K3 and K4 lanes (standalone, off the path)
+    "ladder": (1 << 19, 1024),  # the setup's G1 ladder (~4 x 2^17 points), its twin's lanes
+    # K5's (R, C): A and B1 (2^17 + 2 points), then L and H (2^17 and 2^17 - 1)
+    "k5": ((33, 4096), (32, 4096)),
+    "k6": ((16, 512),),         # K6's (R2, C2): 2^13 buckets of c = 13 over 512 lanes
+    "scan": 4096,               # the lane scan's C, the fold's C2
+    "fold": 512,
+    "bucket": (1 << 13, 512),   # B = 2^c and C2
+    "horner": (20, 13),         # windows and c of a 2^17-point MSM of 255-bit scalars
+}
+# the kernels of every W = 12 instantiation, by JSON name (registers by
+# their ptxas names)
+DEVICE_KERNELS = {
+    "mont_mul": ["mont_mul_kernel<{W},{spare}>"],
+    "mont_mul_w1": ["mont_mul1_kernel<0>", "mont_mul1_kernel<1>"],
+    "add_xyzz": ["add_xyzz_kernel<{W}>"], "dbl_xyzz": ["dbl_xyzz_kernel<{W}>"],
+    "madd_xyzz": ["madd_xyzz_kernel<{W}>"], "scalar_mul_xyzz": ["scalar_mul_xyzz_kernel<{W}>"],
+    "suffix_sweep": ["suffix_totals_kernel<{W}>", "suffix_carries_kernel<{W}>",
+                     "suffix_emit_kernel<{W}>"],
+    "reduce_sweep": ["reduce_partials_kernel<{W}>", "reduce_combine_kernel<{W}>"],
+    "lane_suffix_scan": ["lane_suffix_scan_kernel<{W}>"], "lane_fold": ["lane_fold_kernel<{W}>"],
+    "horner": ["horner_xyzz_kernel<{W}>"], "bucket_add": ["bucket_add_kernel<{W}>"],
+}
+
+
+def bls12_kernels(device, clock_hz, results) -> dict:
+    """Every kernel's W = 12 instantiation against its plain twin on the
+    card, word for word, at the BLS12-381 path's shapes (BLS_SIZES), timed
+    beside its bound at 300 word products a field multiply; K1 also on
+    edge operands, K5 also as points against the sequential twin.  Returns
+    the extra numbers of the JSON entries."""
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED + 9)
+    curve = curves.bls12_381_g1(device)
+    fq = curve.F.spec
+    _, base_x, base_y = base_points(curve, np.random.default_rng(SEED + 9))
+    extra = {}
+
+    k1_random_check(fq, BLS_SIZES["k1"], g, device, clock_hz, results)
+    k1_edges_check(fq, device)
+
+    got = k2_check(fq, base_x, base_y, BLS_SIZES["point"], clock_hz, results)
+    k3_check(fq, got, BLS_SIZES["point"], clock_hz, results)
+    del got
+    k4_check(fq, base_x, base_y, BLS_SIZES["point"], g, clock_hz, results)
+    ladder_check(curve, base_x, base_y, *BLS_SIZES["ladder"], g, clock_hz, results)
+
+    (d1, nd1), (d2, nd2) = _blind_points(curve)
+    shapes = []
+    for R, C in BLS_SIZES["k5"]:
+        suf, _, rec = k5_check(fq, *k5_rows(base_x, base_y, R, C, g), tuple(_bcast(d1, (C,))),
+                               clock_hz, results)
+        shapes.append(rec)
+    extra["suffix_sweep"] = {"shapes": shapes}
+    extra["reduce_sweep"] = k6_check(fq, suf, d2, g, clock_hz, results, BLS_SIZES["k6"],
+                                     sweep=False)
+    lane_check(fq, "lane_suffix_scan", suf, BLS_SIZES["scan"], tuple(nd1), g, clock_hz, results)
+    lane_check(fq, "lane_fold", suf, BLS_SIZES["fold"], tuple(nd2), g, clock_hz, results)
+    extra["bucket_add"] = bucket_check(fq, suf, g, clock_hz, results, *BLS_SIZES["bucket"])[1]
+    hr = horner_check(curve, clock_hz, results, *BLS_SIZES["horner"])
+    extra["horner"] = {"k3_k2_loop_ms": hr["k3_k2_loop_ms"], "chain": hr["chain"]}
+    return extra
+
+
+def launches_at(W: int) -> dict:
+    """Each kernel's launches at W words since the counts were set to 0."""
+    return {name: k[0].launches_by_w.get(W, 0) for name, k in KERNELS.items()}
+
+
+def phase_groth16_bls12(device, clock_hz, results):
+    """Phase 9: the W = 12 kernels against their twins (``bls12_kernels``),
+    then the native Groth16 prover over BLS12-381 at 2^BLS_LOG_N
+    constraints through the port's entry points (setup, Groth16, prove at
+    fixed r and s, verify), each step timed and the proof checked.  Returns
+    the extra kernel numbers and the path's launches by word count."""
+    extra = bls12_kernels(device, clock_hz, results)
+    R = r1cs.pairing_bls12_381.R
+    rng = np.random.default_rng(SEED + 10)
+
+    def draw():
+        return int.from_bytes(rng.bytes(40), "little") % (R - 1) + 1
+
+    x0, r, s = draw(), draw(), draw()
+    secrets = [draw() for _ in range(5)]
+    t0 = time.perf_counter()
+    circuit, public, private = circuits.square_chain(1 << BLS_LOG_N, x0, r=R)
+    circuit_s = time.perf_counter() - t0
+    steps, prove_steps = {}, {}
+    step = cuda_timer(steps)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with step("setup"):
+        pp = r1cs.setup(circuit, "bls12_381", rng=iter(secrets).__next__, device=device)
+    with step("groth16_init"):
+        g16 = r1cs.Groth16(pp, device)
+    with step("prove"):
+        proof = g16.prove(public, private, r=r, s=s, timer=cuda_timer(prove_steps))
+    launches = read_launches(GROTH16_PATH)
+    by_w = {W: launches_at(W) for W in (1, 8, 12)}
+    peak = torch.cuda.max_memory_allocated()
+    w12 = by_w[12]
+    if w12["scalar_mul_xyzz"] != 1 or w12["horner"] != GROTH16_G1_MSMS \
+            or launches["add_xyzz"] != 0 or w12["mont_mul"] == 0 \
+            or any(w12[name] != launches[name] for name in GROTH16_PATH if name != "mont_mul"):
+        raise AssertionError(f"the BLS12-381 path's launches at W = 12 {w12} (all {launches}): "
+                             f"not the ladder once, Horner {GROTH16_G1_MSMS} times, K2 never")
+    with step("verify"):
+        ok = g16.verify(proof, public)
+
+    # checks, beyond the main path's run
+    t0 = time.perf_counter()
+    if ok is not True or g16.verify(proof, [(public[0] + 1) % R]) is not False:
+        raise AssertionError("BLS12-381 Groth16: the proof does not verify, or verifies for "
+                             "output + 1")
+    if g16.prove(public, private, r=r, s=s) != proof:
+        raise AssertionError("BLS12-381 Groth16: a second prove at the same r and s gives "
+                             "another tuple")
+    bad = list(private)
+    bad[0] = (bad[0] + 1) % R  # x_0 * x_0 = x_1 no longer holds
+    if g16.verify(g16.prove(public, bad, r=r, s=s), public) is not False:
+        raise AssertionError("BLS12-381 Groth16: a wrong witness's proof verifies")
+    nv = circuit.num_vars
+    idx = sorted(set(rng.choice(nv, BLS_SAMPLES - 2, replace=False).tolist()) | {0, nv - 1})
+    for curve, query in ((g16.g1, pp.a_query), (g16.g2, pp.b2_query)):
+        pts = r1cs._dev_points(curve, [query[i] for i in idx])
+        if not bool(curve.is_on_curve(pts).all()) or bool(pts.inf.all()):
+            raise AssertionError(f"BLS12-381 Groth16 setup: sampled {curve.name} query points "
+                                 f"are off the curve")
+    checks_s = time.perf_counter() - t0
+    log(f"[groth16-bls12] bls12_381 constraints=2^{BLS_LOG_N} domain={pp.n} vars={nv} "
+        f"verified=True wrong_public_rejected=True repeat_equal=True wrong_witness_rejected=True "
+        f"circuit_s={circuit_s:.3f} checks_s={checks_s:.3f} peak_mem_bytes={peak} "
+        f"steps={json.dumps(steps)} prove_steps={json.dumps(prove_steps)} "
+        f"launches={json.dumps(launches)} launches_by_w={json.dumps(by_w)}")
+    results["groth16_bls12_381"] = {"steps": steps, "prove_steps": prove_steps,
+                                    "peak_mem_bytes": peak}
+    return extra, by_w
+
 def ptxas_registers(nvcc_log: str) -> dict:
     """Registers and spill-store bytes of each kernel from ptxas's -v
-    lines, by the kernel's unmangled name."""
+    lines, by the kernel's unmangled name and its template arguments
+    (``add_xyzz_kernel<12>``, ``mont_mul_kernel<8,1>``)."""
     regs, name = {}, None
     for line in nvcc_log.splitlines():
         if m := re.search(r"Compiling entry function '_Z(\d+)(\w+)'", line):
-            name = m.group(2)[:int(m.group(1))]
+            k = int(m.group(1))
+            name = m.group(2)[:k]
+            if t := re.match(r"I((?:L[a-z]+\d+E)+)E", m.group(2)[k:]):
+                name += "<" + ",".join(re.findall(r"L[a-z]+(\d+)E", t.group(1))) + ">"
             regs[name] = {"registers": None, "spill_stores": 0}
         elif name and (m := re.search(r"(\d+) bytes spill stores", line)):
             regs[name]["spill_stores"] = int(m.group(1))
@@ -1852,13 +2091,15 @@ def main() -> int:
             log(f"[sass-mix] {fn}: {sass_mix(ops)}; {total} instructions, "
                 f"{total / WORD_PRODUCTS:.2f} per word product; by opcode "
                 f"{dict(ops.most_common())}")
-    log(f"[bound] {WORD_PRODUCTS} word products per field multiply (2 W^2 + W at W = 8), "
+    log(f"[bound] {WORD_PRODUCTS} word products per field multiply (2 W^2 + W at W = 8; "
+        f"{word_products(12)} at W = 12), "
         f"{IMAD_PER_CLK_SM} per clock per SM x {SMS} SMs x {clock_hz / 1e6:.0f} MHz; "
         f"{HBM_BYTES_PER_S / 1e12} TB/s")
 
     rng = np.random.default_rng(SEED)
     _, base_x, base_y = base_points(curves.bn254_g1(device), rng)
     results: dict = {}
+    results12: dict = {}  # the W = 12 instantiations' numbers
     phase_s = {}
 
     def phase(name, fn, *args):
@@ -1874,52 +2115,64 @@ def main() -> int:
     groth16_launches = phase("groth16", phase_groth16)
     circom_launches = phase("circom", phase_circom)
     stark_launches = phase("stark", phase_stark, clock_hz, results)
+    bls_extra, bls_by_w = phase("groth16_bls12_381", phase_groth16_bls12, clock_hz, results12)
+    bls_path = f"groth16_bls12_381_2^{BLS_LOG_N}"
     log(f"[phases] seconds {json.dumps(phase_s)}, since the build started "
         f"{time.perf_counter() - t0:.1f} s")
 
+    def registers(name, W):
+        spare = int(W == 8)
+        return {k: regs.get(k) for k in (d.format(W=W, spare=spare) for d in DEVICE_KERNELS[name])}
+
+    # the kernel checks' extra numbers at W = 8 (K1 also at W = 1), by name
+    extra8 = {"suffix_sweep": results["suffix_sweep_phases"],
+              "reduce_sweep": results["reduce_sweep_segments"],
+              "mont_mul": {"call_us": results["mont_mul_call_us"]},
+              "mont_mul_w1": {"call_us": results["mont_mul_w1_call_us"],
+                              "broadcast": results["mont_mul_w1_broadcast"]},
+              "horner": {"k3_k2_loop_ms": results["horner_loop_ms"],
+                         "chain": results["horner_chain"],
+                         "shapes_2^18": [results["horner_2^18"]]},
+              "add_xyzz": {"ms_by_width": results["add_xyzz_by_width"]},
+              "bucket_add": {**results["bucket_add_info"],
+                             "shapes_2^18": results["bucket_add_2^18"]}}
+
+    def lane_numbers(res):
+        """The lane scan's and fold's loops of K2 launches, from lane_check."""
+        return {name: {"k2_path_ms": res[f"{name}_k2_path_ms"],
+                       "k2_loop_ms": res[f"{name}_before_ms"],
+                       "schedule_adds": res[f"{name}_schedule_adds"]}
+                for name in ("lane_suffix_scan", "lane_fold")}
+    paths = {f"msm_2^{LOG_N}": msm_launches, f"kzg_2^{KZG_LOG_N}": kzg_launches,
+             f"groth16_2^{GROTH16_LOG_N}": groth16_launches,
+             f"circom_2^{CIRCOM_LOG_N}": circom_launches,
+             f"stark_2^{STARK_LOG_N}": stark_launches}
+    # an entry for every kernel at W = 8 (K1 at W = 1 too), with every main
+    # path's launches, then one named <name>_w12 for each W = 12
+    # instantiation, checked and timed at the BLS12-381 path's shapes, with
+    # that path's launches at W = 12
     kernels = []
-    for name, (_, source, replaces) in KERNELS.items():
-        r = results[name]
-        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                 "launches": (msm_launches[name] + kzg_launches[name] + groth16_launches[name]
-                              + circom_launches[name] + stark_launches[name]),
-                 "max_abs_err": r["max_abs_err"],
-                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                 "bound_by": r["bound_by"], "library_ms": None, "fmul_per_s": r["fmul_per_s"],
-                 "launches_by_path": {f"msm_2^{LOG_N}": msm_launches[name],
-                                      f"kzg_2^{KZG_LOG_N}": kzg_launches[name],
-                                      f"groth16_2^{GROTH16_LOG_N}": groth16_launches[name],
-                                      f"circom_2^{CIRCOM_LOG_N}": circom_launches[name],
-                                      f"stark_2^{STARK_LOG_N}": stark_launches[name]},
-                 "shape": r["shape"], "plain_shape": r["plain_shape"]}
-        if name in ALSO_REPLACES:
-            entry["also_replaces"] = ALSO_REPLACES[name]
-        if name == "suffix_sweep":
-            entry.update(results["suffix_sweep_phases"])
-        if name == "reduce_sweep":
-            entry.update(results["reduce_sweep_segments"])
-        if name == "mont_mul":
-            entry["call_us"] = results["mont_mul_call_us"]
-        if name == "mont_mul_w1":
-            entry["call_us"] = results["mont_mul_w1_call_us"]
-            entry["broadcast"] = results["mont_mul_w1_broadcast"]
-        if name == "horner":
-            entry["k3_k2_loop_ms"] = results["horner_loop_ms"]
-            entry["chain"] = results["horner_chain"]
-            entry["shapes_2^18"] = [results["horner_2^18"]]
-        if name == "add_xyzz":
-            entry["ms_by_width"] = results["add_xyzz_by_width"]
-            entry["registers"] = regs.get("add_xyzz_kernel")
-        if name == "bucket_add":
-            entry.update(results["bucket_add_info"])
-            entry["shapes_2^18"] = results["bucket_add_2^18"]
-            entry["registers"] = regs.get("bucket_add_kernel")
-        if f"{name}_k2_path_ms" in results:
-            entry["k2_path_ms"] = results[f"{name}_k2_path_ms"]
-        if f"{name}_before_ms" in results:
-            entry["k2_loop_ms"] = results[f"{name}_before_ms"]
-            entry["schedule_adds"] = results[f"{name}_schedule_adds"]
-        kernels.append(entry)
+    for W, res, extra in ((8, results, extra8), (12, results12, bls_extra)):
+        extra = {**lane_numbers(res), **extra}
+        for name, (_, source, replaces) in KERNELS.items():
+            if name not in res:
+                continue  # K1 at one word has no W = 12 instantiation
+            w = 1 if name == "mont_mul_w1" else W
+            by_path = {p: n[name] for p, n in paths.items()} if W == 8 else {}
+            by_path[bls_path] = bls_by_w[w][name]
+            r = res[name]
+            entry = {"name": name if W == 8 else f"{name}_w{W}", "route": "cuda",
+                     "source": source, "replaces": replaces,
+                     "launches": sum(by_path.values()), "max_abs_err": r["max_abs_err"],
+                     "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"], "library_ms": None,
+                     "fmul_per_s": r["fmul_per_s"], "launches_by_path": by_path,
+                     "shape": r["shape"], "plain_shape": r["plain_shape"], "w": w,
+                     "registers": registers(name, w)}
+            if name in ALSO_REPLACES:
+                entry["also_replaces"] = ALSO_REPLACES[name]
+            entry.update(extra.get(name, {}))
+            kernels.append(entry)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,6 +4,8 @@
     JAX_PLATFORMS=cpu python3 scripts/make_torch_groth16_fixture.py \
         [--out tests/fixtures/torch_groth16_jax.json]
 
+Every recorder takes the curve family (``FAMILIES``: bn254 here, bls12_381
+in ``scripts/make_torch_bls12_groth16_fixture.py``).
 Runs the JAX package's generic G2 group law (``SWCurve._dbl/_add/
 _madd_xyzz_jnp`` on ``bn254_g2``, eagerly: over a minute on a CPU) on the
 lanes of ``g2_lanes()``, and ``tachyon_tpu``'s ``zk/groth16/r1cs.py`` (``setup`` with a fixed
@@ -35,41 +37,48 @@ SEED = 2026
 CHAIN_M = 130
 CIRCUITS = ("mul", "chain")
 FIXTURE = Path(__file__).resolve().parent.parent / "tests" / "fixtures" / "torch_groth16_jax.json"
-# the BN254 G2 generator (tachyon_tpu/math/curves.py _bn254_g2_params)
-G2_GEN = (
-    (10857046999023057135944570762232829481370756359578518086990519993285655852781,
-     11559732032986387107991004021392285783925812861821192530917403151452391805634),
-    (8495653923123431417604973247489272438418190587263600148770280649306958101930,
-     4082367875863433681332203403145435568316851327593401208105741076214120093531),
-)
-# the BN254 scalar field modulus (presets.BN254_FR.p)
-R = 21888242871839275222246405745257275088548364400416034343698204186575808495617
+# family -> (the port's pairing module, the G2 constructor of the port's
+# and the JAX package's curves), by name: imported where used
+FAMILIES = {
+    "bn254": ("pairing_bn254", "bn254_g2"),
+    "bls12_381": ("pairing_bls12_381", "bls12_381_g2"),
+}
 
 
-def inputs(name: str):
+def pairing_module(family: str):
+    """The port's host pairing module of the family (its R, P and Fq2)."""
+    import importlib
+
+    return importlib.import_module(f"tachyon_tpu_torch.math.{FAMILIES[family][0]}")
+
+
+def inputs(name: str, family: str = "bn254"):
     """One entry of CIRCUITS: a function making its circuit and witness
-    (given an R1CS class), the five setup secrets, and r and s; from SEED."""
+    (given an R1CS class), the five setup secrets, and r and s; from SEED,
+    over the family's scalar field."""
     from tachyon_tpu_torch.zk.groth16 import circuits
 
+    R = pairing_module(family).R
     rng = np.random.default_rng([SEED, CIRCUITS.index(name)])
     secrets = [int.from_bytes(rng.bytes(40), "little") % (R - 1) + 1 for _ in range(5)]
     r, s = (int.from_bytes(rng.bytes(40), "little") % R for _ in range(2))
     if name == "mul":
-        return (lambda cls: circuits.mul_circuit(cls)), secrets, r, s
+        return (lambda cls: circuits.mul_circuit(cls, r=R)), secrets, r, s
     x0 = int.from_bytes(rng.bytes(40), "little") % R
-    return (lambda cls: circuits.square_chain(CHAIN_M, x0, cls)), secrets, r, s
+    return (lambda cls: circuits.square_chain(CHAIN_M, x0, cls, r=R)), secrets, r, s
 
 
-def g2_lanes():
-    """XYZZ lanes (P, Q) of BN254 G2 as Fq2 int pairs, and Q's affine
+def g2_lanes(family: str = "bn254"):
+    """XYZZ lanes (P, Q) of the family's G2 as Fq2 int pairs, and Q's affine
     points: generic, P = Q, P = -Q, P = inf, Q = inf, both inf, twice with
     other projective scalings (x l^2, y l^3, l^2, l^3, l in Fq2)."""
-    from tachyon_tpu_torch.math import host_ec
-    from tachyon_tpu_torch.math import pairing_bn254 as f2
+    from tachyon_tpu_torch.math import curves, host_ec
 
+    f2 = pairing_module(family)
+    g2 = getattr(curves, FAMILIES[family][1])("cpu")
     rng = np.random.default_rng([SEED, len(CIRCUITS)])
-    gen = (tuple(G2_GEN[0]), tuple(G2_GEN[1]))
-    pts = [host_ec.g2_mul(gen, int(k)) for k in rng.integers(1, 1 << 30, 4)]
+    gen = (tuple(g2.gen_x), tuple(g2.gen_y))
+    pts = [host_ec.g2_mul(gen, int(k), f2) for k in rng.integers(1, 1 << 30, 4)]
 
     def lift(pt):
         if pt is None:
@@ -90,15 +99,15 @@ def g2_lanes():
     return ps, qs, qa
 
 
-def record_g2_group_law() -> dict:
+def record_g2_group_law(family: str = "bn254") -> dict:
     """The JAX generic dbl, add and mixed add on ``g2_lanes()``, each
     coordinate decoded to its Fq2 int pair (imports JAX)."""
     from tachyon_tpu.math import curves
     from tachyon_tpu.math.ec import AffinePoint, PointXYZZ
 
-    g2 = curves.bn254_g2()
+    g2 = getattr(curves, FAMILIES[family][1])()
     F = g2.F
-    ps, qs, qa = g2_lanes()
+    ps, qs, qa = g2_lanes(family)
 
     def enc(vals):
         return F.encode([np.array([v[d] for v in vals], dtype=object) for d in range(2)])
@@ -135,18 +144,25 @@ def params_json(pp) -> dict:
     return out
 
 
-def record() -> dict:
-    """The JAX package's outputs on ``inputs()`` (imports JAX)."""
+def record(family: str = "bn254", device_msms: tuple = ()) -> dict:
+    """The JAX package's outputs on ``inputs()`` (imports JAX).  The proves
+    of the circuits named in ``device_msms`` run every MSM on the JAX
+    device path (``MSM_HOST_THRESHOLD`` 0: on a CPU, the jnp twins of its
+    Pallas kernels); the others its host path, the same points."""
     from tachyon_tpu.zk.groth16 import r1cs as jr1cs
 
-    out = {"seed": SEED, "chain_m": CHAIN_M, "g2_group_law": record_g2_group_law(),
+    R = pairing_module(family).R
+    host_threshold = jr1cs.MSM_HOST_THRESHOLD
+    out = {"seed": SEED, "chain_m": CHAIN_M, "g2_group_law": record_g2_group_law(family),
            "circuits": {}}
     for name in CIRCUITS:
-        build, secrets, r, s = inputs(name)
+        build, secrets, r, s = inputs(name, family)
         circuit, public, private = build(jr1cs.R1CS)
-        pp = jr1cs.setup(circuit, "bn254", rng=iter(secrets).__next__)
+        pp = jr1cs.setup(circuit, family, rng=iter(secrets).__next__)
+        jr1cs.MSM_HOST_THRESHOLD = 0 if name in device_msms else host_threshold
         g16 = jr1cs.Groth16(pp)
         proof = g16.prove(public, private, r=r, s=s)
+        jr1cs.MSM_HOST_THRESHOLD = host_threshold
         out["circuits"][name] = {
             "secrets": [hex(v) for v in secrets], "r": hex(r), "s": hex(s),
             "public": [hex(v) for v in public],

@@ -2,7 +2,8 @@
 """Profile the PyTorch/CUDA port's paths on one GPU with torch.profiler.
 
     python3 scripts/profile_msm_torch.py [--log-n 22] [--kzg-log-n 20]
-        [--groth16-log-n 18] [--circom-log-n 18] [--stark-log-n 20] [--out DIR]
+        [--groth16-log-n 18] [--circom-log-n 18] [--stark-log-n 20]
+        [--bls12-log-n 17] [--out DIR]
 
 Builds the kernels, then traces, each after one warm-up run (a size of 0
 skips its path):
@@ -17,7 +18,10 @@ skips its path):
 - the BabyBear STARK path of chip_smoke.py phase 8 at 2^stark_log_n rows:
   one PCS commit of a 2^stark_log_n x 100 matrix (its trace written), the
   whole PCS path (four commits, the opening, verify) and the Fibonacci
-  uni-STARK's prove and verify (device activity only).
+  uni-STARK's prove and verify (device activity only);
+- one Groth16 prove over BLS12-381 (at fixed r and s) on a square chain
+  of 2^bls12_log_n constraints, after its setup (the W = 12 kernels;
+  device activity only).
 For each it prints the device time by kernel name and the device busy and
 idle shares of the traced window, and writes the Chrome trace to
 <out>/<name>_trace.json; the proves' G2 MSM launches millions of small
@@ -93,6 +97,7 @@ def main() -> int:
     ap.add_argument("--groth16-log-n", type=int, default=18)
     ap.add_argument("--circom-log-n", type=int, default=18)
     ap.add_argument("--stark-log-n", type=int, default=20)
+    ap.add_argument("--bls12-log-n", type=int, default=17)
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -161,6 +166,17 @@ def main() -> int:
               f"{time.perf_counter() - t0:.2f} s")
         profile(f"circom_prove_2^{args.circom_log_n}",
                 lambda: pr.prove(wtns, r=r, s=s), out, host=False)
+        del pr
+        torch.cuda.empty_cache()
+    if args.bls12_log_n:
+        rr = r1cs.pairing_bls12_381.R
+        circuit, public, private = circuits.square_chain(1 << args.bls12_log_n, 0x1234567, r=rr)
+        t0 = time.perf_counter()
+        g16 = r1cs.Groth16(r1cs.setup(circuit, "bls12_381", rng=iter([11, 12, 13, 14, 15]).__next__,
+                                      device=device), device)
+        print(f"[groth16-bls12] setup + Groth16(...) {time.perf_counter() - t0:.2f} s")
+        profile(f"groth16_bls12_381_prove_2^{args.bls12_log_n}",
+                lambda: g16.prove(public, private, r=rr - 5, s=rr - 7), out, host=False)
     return 0
 
 

@@ -6,6 +6,7 @@ ported paths rewritten as a hand-written CUDA kernel for Hopper (sm_90a).
 
 It imports ``torch`` and never ``jax``, and nothing of ``tachyon_tpu``: it
 keeps its own copies of the jax-free modules it needs (``fields/spec.py``,
-``fields/presets.py``, ``math/pairing_bn254.py``).  Its entry points put
+``fields/presets.py``, ``math/pairing_bn254.py``,
+``math/pairing_bls12_381.py``).  Its entry points put
 their tensors on the card unless the caller passes another device.
 """

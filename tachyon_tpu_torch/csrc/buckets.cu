@@ -34,12 +34,14 @@
 // turns than at K2's cap (4 blocks of 128, or 8 of 64: 128 registers, 164
 // bytes of spills) and 21% faster than at 5 blocks (96 registers, 500
 // bytes); the spills' local loads queue behind the scattered T loads
-// (PERF.md).
+// (PERF.md).  The cap is per W: at W = 12 (BLS12-381, 48 words a point)
+// one block, ptxas's 255 registers a thread (untuned).
 constexpr int BUCKET_THREADS = 128;
-constexpr int BUCKET_MIN_BLOCKS = 3;
+template <int W>
+constexpr int BUCKET_MIN_BLOCKS = W == 8 ? 3 : 1;
 
 template <int W>
-__global__ void __launch_bounds__(BUCKET_THREADS, BUCKET_MIN_BLOCKS)
+__global__ void __launch_bounds__(BUCKET_THREADS, BUCKET_MIN_BLOCKS<W>)
     bucket_add_kernel(const uint32_t* __restrict__ tx, const uint32_t* __restrict__ ty,
                       const uint32_t* __restrict__ tzz, const uint32_t* __restrict__ tzzz,
                       const uint32_t* __restrict__ wx, const uint32_t* __restrict__ wy,
@@ -82,15 +84,11 @@ extern "C" cudaError_t tt_bucket_add(const void* tx, const void* ty, const void*
   if (B < 1 || C2 < 1 || B % C2 != 0) return cudaErrorInvalidValue;
   const int64_t blocks = (B + BUCKET_THREADS - 1) / BUCKET_THREADS;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (W) {
-    case 8:
-      bucket_add_kernel<8><<<(unsigned)blocks, BUCKET_THREADS, 0, s>>>(
-          U32C(tx), U32C(ty), U32C(tzz), U32C(tzzz), U32C(wx), U32C(wy), U32C(wzz), U32C(wzzz),
-          (const int32_t*)pos, U32(ox), U32(oy), U32(ozz), U32(ozzz), R, C, B, C2,
-          load_consts<8>(consts));
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  TT_DISPATCH_W(W, [&] {
+    bucket_add_kernel<kW><<<(unsigned)blocks, BUCKET_THREADS, 0, s>>>(
+        U32C(tx), U32C(ty), U32C(tzz), U32C(tzzz), U32C(wx), U32C(wy), U32C(wzz), U32C(wzzz),
+        (const int32_t*)pos, U32(ox), U32(oy), U32(ozz), U32(ozzz), R, C, B, C2,
+        load_consts<kW>(consts));
+    return cudaGetLastError();
+  });
 }

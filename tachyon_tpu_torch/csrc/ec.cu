@@ -5,7 +5,8 @@
 // word-major int32 array holding uint32 words.
 //
 // K4 is bound by integer multiplies: a madd is 10 field multiplies (19 on
-// the lanes that double), each 2W^2 + W = 136 word products at W = 8,
+// the lanes that double), each 2W^2 + W = 136 word products at W = 8 (300
+// at W = 12, BLS12-381),
 // against 6 x 32 + 4 bytes read and 4 x 32 written per point.  One thread
 // keeps a point in registers, as in K2.  The TPU kernel pads the batch to
 // whole blocks with q_inf = 1; here a bounds check ends the ragged block.
@@ -20,10 +21,13 @@
 // block, and faster than at 3 or 5 blocks (PERF.md).  The MSM window no
 // longer launches K2 (csrc/buckets.cu and csrc/lanes.cu take its adds); the
 // naive MSM's tree reduce and Pedersen's last add do, on 1 to 32 points.
-constexpr int ADD_MIN_BLOCKS = 4;
+// The cap is per W: at W = 12 (BLS12-381) a point is 48 words, so the
+// kernel asks for one block, ptxas's 255 registers a thread (untuned).
+template <int W>
+constexpr int ADD_MIN_BLOCKS = W == 8 ? 4 : 1;
 
 template <int W>
-__global__ void __launch_bounds__(128, ADD_MIN_BLOCKS)
+__global__ void __launch_bounds__(128, ADD_MIN_BLOCKS<W>)
     add_xyzz_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
                                 const uint32_t* __restrict__ pzz, const uint32_t* __restrict__ pzzz,
                                 const uint32_t* __restrict__ qx, const uint32_t* __restrict__ qy,
@@ -81,16 +85,12 @@ extern "C" cudaError_t tt_add_xyzz(const void* px, const void* py, const void* p
   const int threads = 128;
   const int64_t blocks = (n + threads - 1) / threads;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (W) {
-    case 8:
-      add_xyzz_kernel<8><<<(unsigned)blocks, threads, 0, s>>>(
-          U32C(px), U32C(py), U32C(pzz), U32C(pzzz), U32C(qx), U32C(qy), U32C(qzz), U32C(qzzz),
-          U32(ox), U32(oy), U32(ozz), U32(ozzz), n, load_consts<8>(consts));
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  TT_DISPATCH_W(W, [&] {
+    add_xyzz_kernel<kW><<<(unsigned)blocks, threads, 0, s>>>(
+        U32C(px), U32C(py), U32C(pzz), U32C(pzzz), U32C(qx), U32C(qy), U32C(qzz), U32C(qzzz),
+        U32(ox), U32(oy), U32(ozz), U32(ozzz), n, load_consts<kW>(consts));
+    return cudaGetLastError();
+  });
 }
 
 extern "C" cudaError_t tt_dbl_xyzz(const void* px, const void* py, const void* pzz,
@@ -99,16 +99,12 @@ extern "C" cudaError_t tt_dbl_xyzz(const void* px, const void* py, const void* p
   const int threads = 128;
   const int64_t blocks = (n + threads - 1) / threads;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (W) {
-    case 8:
-      dbl_xyzz_kernel<8><<<(unsigned)blocks, threads, 0, s>>>(
-          U32C(px), U32C(py), U32C(pzz), U32C(pzzz), U32(ox), U32(oy), U32(ozz), U32(ozzz), n,
-          load_consts<8>(consts));
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  TT_DISPATCH_W(W, [&] {
+    dbl_xyzz_kernel<kW><<<(unsigned)blocks, threads, 0, s>>>(
+        U32C(px), U32C(py), U32C(pzz), U32C(pzzz), U32(ox), U32(oy), U32(ozz), U32(ozzz), n,
+        load_consts<kW>(consts));
+    return cudaGetLastError();
+  });
 }
 
 extern "C" cudaError_t tt_madd_xyzz(const void* px, const void* py, const void* pzz,
@@ -118,14 +114,10 @@ extern "C" cudaError_t tt_madd_xyzz(const void* px, const void* py, const void* 
   const int threads = 128;
   const int64_t blocks = (n + threads - 1) / threads;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (W) {
-    case 8:
-      madd_xyzz_kernel<8><<<(unsigned)blocks, threads, 0, s>>>(
-          U32C(px), U32C(py), U32C(pzz), U32C(pzzz), U32C(qx), U32C(qy), (const int32_t*)qinf,
-          U32(ox), U32(oy), U32(ozz), U32(ozzz), n, load_consts<8>(consts));
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  TT_DISPATCH_W(W, [&] {
+    madd_xyzz_kernel<kW><<<(unsigned)blocks, threads, 0, s>>>(
+        U32C(px), U32C(py), U32C(pzz), U32C(pzzz), U32C(qx), U32C(qy), (const int32_t*)qinf,
+        U32(ox), U32(oy), U32(ozz), U32(ozzz), n, load_consts<kW>(consts));
+    return cudaGetLastError();
+  });
 }

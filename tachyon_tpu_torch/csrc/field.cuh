@@ -10,12 +10,14 @@
 //
 // Additions and subtractions are PTX carry chains (add.cc / addc / sub.cc /
 // subc; 13% faster on the 2^22 MSM than the same chains in portable C++).
-// The multiply has two forms, chosen by a template bool from p's top word:
-// fp_mul<W, true> for p < 2^(32 W - 1) (BN254: a spare bit), 32-bit PTX
-// multiply-add chains in the even/odd layout of sppark's mont_t; and
+// The multiply has two forms, chosen by a template bool: fp_mul<8, true>
+// for p < 2^255 (BN254: a spare bit), 32-bit PTX multiply-add chains in
+// the even/odd layout of sppark's mont_t, written for W = 8 only; and
 // fp_mul<W, false>, CIOS on 64-bit C++ products with two words above the
-// top, right for moduli up to 2^(32 W) - 1 (secp256k1's p is a full 256
-// bits).  The point kernels use the first and take only spare-bit fields.
+// top, right for any W and any p < 2^(32 W) (secp256k1's p is a full 256
+// bits; BLS12-381's Fq, W = 12).  The default follows W: the chains at
+// W = 8, where the point kernels take only spare-bit fields, and the
+// 64-bit CIOS at every other W.
 #pragma once
 
 #include <cstdint>
@@ -36,6 +38,25 @@ inline FieldConst<W> load_consts(const uint32_t* host) {
   f.n0inv = host[2 * W];
   return f;
 }
+
+// The word counts every multi-word kernel is built at: W = 8 (BN254) and
+// W = 12 (BLS12-381's Fq).  A launcher's body is a lambda on the constexpr
+// int kW: TT_DISPATCH_W(W, [&] { kernel<kW><<<...>>>(...); ... }) runs it
+// with kW equal to the runtime W and returns what it returns, and refuses
+// any other W.  ops/cuda_mont.py's POINT_W names the same set.
+#define TT_DISPATCH_W(W, ...)       \
+  switch (W) {                      \
+    case 8: {                       \
+      constexpr int kW = 8;         \
+      return __VA_ARGS__();         \
+    }                               \
+    case 12: {                      \
+      constexpr int kW = 12;        \
+      return __VA_ARGS__();         \
+    }                               \
+    default:                        \
+      return cudaErrorInvalidValue; \
+  }
 
 // ---- PTX carry-chain primitives ---------------------------------------------
 __device__ __forceinline__ uint32_t add_cc(uint32_t a, uint32_t b) {
@@ -159,7 +180,7 @@ inline bool has_spare_bit(const uint32_t* consts) {
 // the odd array never carries out of its top word.  Each chain is one asm
 // statement: as separate statements, the compiler reordered them apart
 // from the carry flag they pass (wrong words on the H100).  Written for
-// W = 8, the only word count the kernels are instantiated for.
+// W = 8 only; other word counts take the 64-bit CIOS below.
 
 // One CIOS round on t = even + odd * 2^32: t = (t + a * bi + m * p) / 2^32
 // with m = t[0] * n0inv.  After it the roles swap: the caller passes the
@@ -239,8 +260,10 @@ __device__ __forceinline__ void mad_n_redc(uint32_t even[W], uint32_t odd[W], co
 // then m * p with m = t[0] * n0inv so that the low word cancels, and shifts
 // t down one word; t < 2p after every round, so the two words above the
 // top (t[W], t[W+1]) never overflow.  Those products are plain 64-bit C++
-// (IMAD.WIDE with a separate add for each carry).
-template <int W, bool SPARE = true>
+// (IMAD.WIDE with a separate add for each carry).  SPARE defaults to
+// W == 8: the W = 12 kernels (BLS12-381's Fq) run the 64-bit CIOS, which
+// needs no spare bit.
+template <int W, bool SPARE = (W == 8)>
 __device__ __forceinline__ void fp_mul(uint32_t r[W], const uint32_t a[W], const uint32_t b[W],
                                        const FieldConst<W>& f) {
   if constexpr (SPARE) {

@@ -46,14 +46,10 @@ extern "C" cudaError_t tt_horner_xyzz(const void* wx, const void* wy, const void
                                       void* stream) {
   if (nwin < 1 || c < 0) return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (W) {
-    case 8:
-      horner_xyzz_kernel<8><<<1, 1, 0, s>>>(U32C(wx), U32C(wy), U32C(wzz), U32C(wzzz), U32(ox),
-                                             U32(oy), U32(ozz), U32(ozzz), nwin, c,
-                                             load_consts<8>(consts));
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  TT_DISPATCH_W(W, [&] {
+    horner_xyzz_kernel<kW><<<1, 1, 0, s>>>(U32C(wx), U32C(wy), U32C(wzz), U32C(wzzz), U32(ox),
+                                            U32(oy), U32(ozz), U32(ozzz), nwin, c,
+                                            load_consts<kW>(consts));
+    return cudaGetLastError();
+  });
 }

@@ -63,15 +63,11 @@ extern "C" cudaError_t tt_scalar_mul_xyzz(const void* px, const void* py, const 
                                           int W, void* stream) {
   const int64_t blocks = (n + LADDER_THREADS - 1) / LADDER_THREADS;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (W) {
-    case 8:
-      scalar_mul_xyzz_kernel<8><<<(unsigned)blocks, LADDER_THREADS, 0, s>>>(
-          (const uint32_t*)px, (const uint32_t*)py, (const int32_t*)pinf,
-          (const uint32_t*)scalars, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)ozz,
-          (uint32_t*)ozzz, n, Ws, load_consts<8>(consts));
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  TT_DISPATCH_W(W, [&] {
+    scalar_mul_xyzz_kernel<kW><<<(unsigned)blocks, LADDER_THREADS, 0, s>>>(
+        (const uint32_t*)px, (const uint32_t*)py, (const int32_t*)pinf, (const uint32_t*)scalars,
+        (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)ozz, (uint32_t*)ozzz, n, Ws,
+        load_consts<kW>(consts));
+    return cudaGetLastError();
+  });
 }

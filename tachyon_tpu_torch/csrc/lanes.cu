@@ -49,7 +49,9 @@ namespace cg = cooperative_groups;
 
 constexpr int SCAN_THREADS = 128;
 // C / 2 at most: at the fold's 186 registers a block of 512 would need
-// 95k of the SM's 64k.
+// 95k of the SM's 64k.  Its shared memory, 4 W FOLD_THREADS words, is
+// 48 KiB at W = 12 (BLS12-381), the static limit; 256 threads at ptxas's
+// 255 registers fit the 64k register file.
 constexpr int FOLD_THREADS = 256;
 
 template <int W>
@@ -195,24 +197,17 @@ extern "C" cudaError_t tt_lane_suffix_scan(const void* ux, const void* uy, const
   cudaStream_t s = (cudaStream_t)stream;
   const unsigned blocks = (unsigned)((C + SCAN_THREADS - 1) / SCAN_THREADS);
   int steps = bit_length(C - 1);
-  switch (W) {
-    case 8: {
-      FieldConst<8> f = load_consts<8>(consts);
-      const uint32_t *ux_ = U32C(ux), *uy_ = U32C(uy), *uzz_ = U32C(uzz), *uzzz_ = U32C(uzzz);
-      const uint32_t *bx_ = U32C(bx), *by_ = U32C(by), *bzz_ = U32C(bzz), *bzzz_ = U32C(bzzz);
-      uint32_t *buf_ = U32(buf), *ox_ = U32(ox), *oy_ = U32(oy), *ozz_ = U32(ozz),
-               *ozzz_ = U32(ozzz);
-      void* args[] = {&ux_, &uy_, &uzz_, &uzzz_, &bx_, &by_, &bzz_, &bzzz_, &buf_,
-                      &ox_, &oy_,  &ozz_, &ozzz_, &C,     &steps, &f};
-      cudaError_t err = cudaLaunchCooperativeKernel((const void*)lane_suffix_scan_kernel<8>,
-                                                    dim3(blocks), dim3(SCAN_THREADS), args, 0, s);
-      if (err != cudaSuccess) return err;
-      break;
-    }
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  const uint32_t *ux_ = U32C(ux), *uy_ = U32C(uy), *uzz_ = U32C(uzz), *uzzz_ = U32C(uzzz);
+  const uint32_t *bx_ = U32C(bx), *by_ = U32C(by), *bzz_ = U32C(bzz), *bzzz_ = U32C(bzzz);
+  uint32_t *buf_ = U32(buf), *ox_ = U32(ox), *oy_ = U32(oy), *ozz_ = U32(ozz), *ozzz_ = U32(ozzz);
+  TT_DISPATCH_W(W, [&] {
+    FieldConst<kW> f = load_consts<kW>(consts);
+    void* args[] = {&ux_, &uy_, &uzz_, &uzzz_, &bx_, &by_, &bzz_, &bzzz_, &buf_,
+                    &ox_, &oy_,  &ozz_, &ozzz_, &C,     &steps, &f};
+    cudaError_t err = cudaLaunchCooperativeKernel((const void*)lane_suffix_scan_kernel<kW>,
+                                                  dim3(blocks), dim3(SCAN_THREADS), args, 0, s);
+    return err != cudaSuccess ? err : cudaGetLastError();
+  });
 }
 
 extern "C" cudaError_t tt_lane_fold(const void* px, const void* py, const void* pzz,
@@ -222,14 +217,10 @@ extern "C" cudaError_t tt_lane_fold(const void* px, const void* py, const void* 
                                     const uint32_t* consts, int W, void* stream) {
   if (C < 1 || C > 2 * FOLD_THREADS || (C & (C - 1)) != 0) return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (W) {
-    case 8:
-      lane_fold_kernel<8><<<1, (unsigned)(C > 1 ? C / 2 : 1), 0, s>>>(
-          U32C(px), U32C(py), U32C(pzz), U32C(pzzz), U32C(bx), U32C(by), U32C(bzz), U32C(bzzz),
-          U32(ox), U32(oy), U32(ozz), U32(ozzz), ostride, C, load_consts<8>(consts));
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  TT_DISPATCH_W(W, [&] {
+    lane_fold_kernel<kW><<<1, (unsigned)(C > 1 ? C / 2 : 1), 0, s>>>(
+        U32C(px), U32C(py), U32C(pzz), U32C(pzzz), U32C(bx), U32C(by), U32C(bzz), U32C(bzzz),
+        U32(ox), U32(oy), U32(ozz), U32(ozzz), ostride, C, load_consts<kW>(consts));
+    return cudaGetLastError();
+  });
 }

@@ -38,7 +38,9 @@
 // starts: other warps hide most of the loads.  Phases 1 and 3 ask ptxas
 // for SWEEP_MIN_BLOCKS = 5 blocks per SM, which caps them at 96 registers
 // with 72-88 bytes of spills; they ran 11% faster at (1024, 8, 4096) than
-// with the 148-154 registers ptxas takes uncapped (PERF.md).
+// with the 148-154 registers ptxas takes uncapped (PERF.md).  The cap is
+// per W: at W = 12 (BLS12-381, 48 words a point) they ask for one block,
+// ptxas's 255 registers a thread (untuned).
 //
 // K6 (the reduce sweep, tachyon_tpu/ops/pallas_msm.py _reduce_sweep_call,
 // body _add_blinded; JAX twin reduce_sweep_jnp) sums a lane's R XYZZ rows
@@ -60,7 +62,8 @@
 #include "xyzz.cuh"
 
 constexpr int SWEEP_THREADS = 128;   // phases 1 and 3
-constexpr int SWEEP_MIN_BLOCKS = 5;  // per SM, asked of ptxas for phases 1 and 3
+template <int W>
+constexpr int SWEEP_MIN_BLOCKS = W == 8 ? 5 : 1;  // per SM, asked of ptxas for phases 1, 3
 constexpr int CARRY_THREADS = 32;   // phase 2: one warp per block spreads C lanes over SMs
 constexpr int REDUCE_THREADS = 128;  // K6 phase 1
 constexpr int COMBINE_THREADS = 64;  // K6 phase 2: lanes x F threads per block
@@ -128,7 +131,7 @@ __device__ __forceinline__ void sweep_rows(Xyzz<W>& acc, const uint32_t* __restr
 
 // Phase 1: T[s] = D + sum of segment s, for s = 1 .. S - 1, into slot s - 1.
 template <int W>
-__global__ void __launch_bounds__(SWEEP_THREADS, SWEEP_MIN_BLOCKS)
+__global__ void __launch_bounds__(SWEEP_THREADS, SWEEP_MIN_BLOCKS<W>)
     suffix_totals_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
                          const uint32_t* __restrict__ inf, const uint32_t* __restrict__ dx,
                          const uint32_t* __restrict__ dy, const uint32_t* __restrict__ dzz,
@@ -170,7 +173,7 @@ __global__ void __launch_bounds__(CARRY_THREADS)
 
 // Phase 3: every row of segment s from Cin[s] (D for the top segment).
 template <int W>
-__global__ void __launch_bounds__(SWEEP_THREADS, SWEEP_MIN_BLOCKS)
+__global__ void __launch_bounds__(SWEEP_THREADS, SWEEP_MIN_BLOCKS<W>)
     suffix_emit_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
                        const uint32_t* __restrict__ inf, const uint32_t* __restrict__ dx,
                        const uint32_t* __restrict__ dy, const uint32_t* __restrict__ dzz,
@@ -298,16 +301,12 @@ extern "C" cudaError_t tt_suffix_totals(const void* x, const void* y, const void
                                         void* stream) {
   if (S < 2) return cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (W) {
-    case 8:
-      suffix_totals_kernel<8><<<blocks_for((S - 1) * C, SWEEP_THREADS), SWEEP_THREADS, 0, s>>>(
-          U32C(x), U32C(y), U32C(inf), U32C(dx), U32C(dy), U32C(dzz), U32C(dzzz), U32(tot), R, C,
-          L, S, load_consts<8>(consts));
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  TT_DISPATCH_W(W, [&] {
+    suffix_totals_kernel<kW><<<blocks_for((S - 1) * C, SWEEP_THREADS), SWEEP_THREADS, 0, s>>>(
+        U32C(x), U32C(y), U32C(inf), U32C(dx), U32C(dy), U32C(dzz), U32C(dzzz), U32(tot), R, C,
+        L, S, load_consts<kW>(consts));
+    return cudaGetLastError();
+  });
 }
 
 extern "C" cudaError_t tt_suffix_carries(const void* tot, const void* dx, const void* dy,
@@ -315,16 +314,12 @@ extern "C" cudaError_t tt_suffix_carries(const void* tot, const void* dx, const 
                                          int64_t S, const uint32_t* consts, int W, void* stream) {
   if (S < 2) return cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (W) {
-    case 8:
-      suffix_carries_kernel<8><<<blocks_for(C, CARRY_THREADS), CARRY_THREADS, 0, s>>>(
-          U32C(tot), U32C(dx), U32C(dy), U32C(dzz), U32C(dzzz), U32(cin), C, S,
-          load_consts<8>(consts));
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  TT_DISPATCH_W(W, [&] {
+    suffix_carries_kernel<kW><<<blocks_for(C, CARRY_THREADS), CARRY_THREADS, 0, s>>>(
+        U32C(tot), U32C(dx), U32C(dy), U32C(dzz), U32C(dzzz), U32(cin), C, S,
+        load_consts<kW>(consts));
+    return cudaGetLastError();
+  });
 }
 
 extern "C" cudaError_t tt_suffix_emit(const void* x, const void* y, const void* inf,
@@ -333,16 +328,12 @@ extern "C" cudaError_t tt_suffix_emit(const void* x, const void* y, const void* 
                                       void* szz, void* szzz, int64_t R, int64_t C, int64_t L,
                                       int64_t S, const uint32_t* consts, int W, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  switch (W) {
-    case 8:
-      suffix_emit_kernel<8><<<blocks_for(S * C, SWEEP_THREADS), SWEEP_THREADS, 0, s>>>(
-          U32C(x), U32C(y), U32C(inf), U32C(dx), U32C(dy), U32C(dzz), U32C(dzzz), U32C(cin),
-          U32(sx), U32(sy), U32(szz), U32(szzz), R, C, L, S, load_consts<8>(consts));
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  TT_DISPATCH_W(W, [&] {
+    suffix_emit_kernel<kW><<<blocks_for(S * C, SWEEP_THREADS), SWEEP_THREADS, 0, s>>>(
+        U32C(x), U32C(y), U32C(inf), U32C(dx), U32C(dy), U32C(dzz), U32C(dzzz), U32C(cin),
+        U32(sx), U32(sy), U32(szz), U32(szzz), R, C, L, S, load_consts<kW>(consts));
+    return cudaGetLastError();
+  });
 }
 
 // Threads per block of K6's phase 1, for the wrapper's segment count.
@@ -355,16 +346,12 @@ extern "C" cudaError_t tt_reduce_partials(const void* x, const void* y, const vo
                                           int64_t C, int64_t L, int64_t S, const uint32_t* consts,
                                           int W, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  switch (W) {
-    case 8:
-      reduce_partials_kernel<8><<<blocks_for(S * C, REDUCE_THREADS), REDUCE_THREADS, 0, s>>>(
-          U32C(x), U32C(y), U32C(zz), U32C(zzz), U32C(dx), U32C(dy), U32C(dzz), U32C(dzzz),
-          U32(tot), R, C, L, S, load_consts<8>(consts));
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  TT_DISPATCH_W(W, [&] {
+    reduce_partials_kernel<kW><<<blocks_for(S * C, REDUCE_THREADS), REDUCE_THREADS, 0, s>>>(
+        U32C(x), U32C(y), U32C(zz), U32C(zzz), U32C(dx), U32C(dy), U32C(dzz), U32C(dzzz),
+        U32(tot), R, C, L, S, load_consts<kW>(consts));
+    return cudaGetLastError();
+  });
 }
 
 // Threads per block of K6's phase 2, the most threads per lane it takes.
@@ -379,14 +366,10 @@ extern "C" cudaError_t tt_reduce_combine(const void* tot, const void* dx, const 
   if (F < 1 || F > COMBINE_THREADS || (F & (F - 1)) != 0) return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int lpb = COMBINE_THREADS / F, n = lpb * F;
-  switch (W) {
-    case 8:
-      reduce_combine_kernel<8><<<blocks_for(C, lpb), n, 4 * 8 * n * sizeof(uint32_t), s>>>(
-          U32C(tot), U32C(dx), U32C(dy), U32C(dzz), U32C(dzzz), U32(out), C, S, (S + F - 1) / F,
-          F, load_consts<8>(consts));
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  TT_DISPATCH_W(W, [&] {
+    reduce_combine_kernel<kW><<<blocks_for(C, lpb), n, 4 * kW * n * sizeof(uint32_t), s>>>(
+        U32C(tot), U32C(dx), U32C(dy), U32C(dzz), U32C(dzzz), U32(out), C, S, (S + F - 1) / F,
+        F, load_consts<kW>(consts));
+    return cudaGetLastError();
+  });
 }

@@ -1,6 +1,7 @@
 """Concrete curve instances of the port (parameters as in
 ``tachyon_tpu/math/curves.py``): BN254 G1 over Fq and G2 over
-Fq2 = Fq[u]/(u^2 + 1).
+Fq2 = Fq[u]/(u^2 + 1); BLS12-381 G1 over its 381-bit Fq (12 words) and
+G2 on the M-twist y^2 = x^3 + 4(u + 1) over its Fq2 = Fq[u]/(u^2 + 1).
 
 Every constructor puts the field's constants on the card unless the caller
 passes another device (the CPU tests pass ``"cpu"``)."""
@@ -9,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from tachyon_tpu_torch.fields import presets
+from tachyon_tpu_torch.math import pairing_bls12_381 as bls
 from tachyon_tpu_torch.math.ec import SWCurve
 from tachyon_tpu_torch.math.extfield import ExtField
 from tachyon_tpu_torch.math.field import PrimeField
@@ -67,4 +69,42 @@ def bn254_g2(device=torch.device("cuda")) -> SWCurve:
         gen_x=gx,
         gen_y=gy,
         scalar_field=bn254_fr(device),
+    )
+
+
+def bls12_381_fq(device=torch.device("cuda")) -> PrimeField:
+    return PrimeField(presets.BLS12_381_FQ, device)
+
+
+def bls12_381_fr(device=torch.device("cuda")) -> PrimeField:
+    return PrimeField(presets.BLS12_381_FR, device)
+
+
+def bls12_381_fq2(device=torch.device("cuda")) -> ExtField:
+    # Fq2 = Fq[u]/(u^2 + 1)
+    return ExtField(bls12_381_fq(device), 2, -1, name="bls12_381_fq2")
+
+
+def bls12_381_g1(device=torch.device("cuda")) -> SWCurve:
+    return SWCurve(
+        name="bls12_381_g1",
+        field=bls12_381_fq(device),
+        a=0,
+        b=4,
+        gen_x=bls.G1_GEN[0],
+        gen_y=bls.G1_GEN[1],
+        scalar_field=bls12_381_fr(device),
+    )
+
+
+def bls12_381_g2(device=torch.device("cuda")) -> SWCurve:
+    """BLS12-381 G2 on the M-twist y^2 = x^3 + 4(u + 1)."""
+    return SWCurve(
+        name="bls12_381_g2",
+        field=bls12_381_fq2(device),
+        a=[0, 0],
+        b=[4, 4],
+        gen_x=list(bls.G2_GEN[0]),
+        gen_y=list(bls.G2_GEN[1]),
+        scalar_field=bls12_381_fr(device),
     )

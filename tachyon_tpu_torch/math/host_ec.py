@@ -5,10 +5,12 @@ The port's counterpart of the JAX package's test helpers
 ``_host_point_mul``/``msm_host_reference``): affine add, scalar multiple,
 an exact MSM, the MSM of a tiled point set (what ``chip_smoke.py`` checks
 the 2^22 MSM and the 2^18 G2 MSM against), and the blind-point derivation
-of the sweeps;
-and the BN254 G2 add, scalar multiple and MSM that KZG's ``verify`` and
-the Groth16 provers take (the JAX package's ``zk/groth16/r1cs.py``
-``g2_add``/``g2_mul``).
+of the sweeps (any a = 0 curve: bls12_381 G1 takes the JAX package's
+draws, as bn254 G1 does);
+and the G2 add, scalar multiple and MSM that KZG's ``verify`` and the
+Groth16 provers take (the JAX package's ``zk/groth16/r1cs.py``
+``g2_add``/``g2_mul``), over the Fq2 of a pairing module: BN254's by
+default, ``pairing_bls12_381`` for the bls12_381 family.
 A point is an ``(x, y)`` tuple of ints (of Fq2 pairs for G2), or None for
 infinity.
 """
@@ -64,9 +66,45 @@ def _shared_msm(points, scalars, add):
     return acc
 
 
+def _jac_dbl(p, a: int, mod: int):
+    """2P of a Jacobian point (X, Y, Z), x = X / Z^2, y = Y / Z^3 (None at
+    infinity)."""
+    if p is None or p[1] == 0:
+        return None
+    x, y, z = p
+    yy = y * y % mod
+    s = 4 * x * yy % mod
+    m = (3 * x * x + a * pow(z, 4, mod)) % mod
+    x3 = (m * m - 2 * s) % mod
+    return x3, (m * (s - x3) - 8 * yy * yy) % mod, 2 * y * z % mod
+
+
+def _jac_madd(p, q, a: int, mod: int):
+    """Jacobian P (None at infinity) plus affine Q."""
+    if p is None:
+        return q[0], q[1], 1
+    x, y, z = p
+    zz = z * z % mod
+    h = (q[0] * zz - x) % mod
+    r = (q[1] * zz * z - y) % mod
+    if h == 0:
+        return _jac_dbl(p, a, mod) if r == 0 else None
+    hh = h * h % mod
+    hhh, v = h * hh % mod, x * hh % mod
+    x3 = (r * r - hhh - 2 * v) % mod
+    return x3, (r * (v - x3) - y * hhh) % mod, z * h % mod
+
+
 def msm(points, scalars, a: int, mod: int):
-    """Exact sum_i [s_i] P_i (points may hold None for infinity)."""
-    return _shared_msm(points, scalars, lambda p, q: affine_add(p, q, a, mod))
+    """Exact sum_i [s_i] P_i (points may hold None for infinity): the shared
+    chain in Jacobian coordinates, with one inversion at the end where an
+    affine add takes one each."""
+    acc = _shared_msm(points, scalars, lambda p, q: _jac_dbl(p, a, mod) if q is p
+                      else _jac_madd(p, q, a, mod))
+    if acc is None:
+        return None
+    zi = pow(acc[2], -1, mod)
+    return acc[0] * zi * zi % mod, acc[1] * zi * zi * zi % mod
 
 
 def tiled_scalar(ks, scalar_limbs: np.ndarray, order: int) -> int:
@@ -101,9 +139,8 @@ def blind_points(gen, a: int, mod: int, order: int):
     return pts
 
 
-def g2_add(p, q):
-    """Affine add on BN254 G2 (coordinates in Fq2)."""
-    f = pairing
+def g2_add(p, q, f=pairing):
+    """Affine add on G2 (coordinates in the Fq2 of the pairing module f)."""
     if p is None:
         return q
     if q is None:
@@ -120,17 +157,18 @@ def g2_add(p, q):
     return (x3, f.f2_sub(f.f2_mul(lam, f.f2_sub(x1, x3)), y1))
 
 
-def g2_mul(p, k: int):
-    """[k]P on BN254 G2 by double-and-add."""
+def g2_mul(p, k: int, f=pairing):
+    """[k]P on G2 (over the pairing module f's Fq2) by double-and-add."""
     acc, add = None, p
     while k:
         if k & 1:
-            acc = g2_add(acc, add)
-        add = g2_add(add, add)
+            acc = g2_add(acc, add, f)
+        add = g2_add(add, add, f)
         k >>= 1
     return acc
 
 
-def g2_msm(points, scalars):
-    """Exact sum_i [s_i] P_i on BN254 G2 (points may hold None)."""
-    return _shared_msm(points, scalars, g2_add)
+def g2_msm(points, scalars, f=pairing):
+    """Exact sum_i [s_i] P_i on G2 over the pairing module f's Fq2
+    (points may hold None)."""
+    return _shared_msm(points, scalars, lambda p, q: g2_add(p, q, f))

@@ -183,13 +183,17 @@ MSM_NAIVE_THRESHOLD = 128
 
 def _layout_and_blinds(curve: SWCurve, n: int):
     """The (R, C) sweep layout for n points, and the blind points: at
-    infinity where the curve has no point kernels (no blinding needed)."""
+    infinity where the curve has no point kernels (no blinding needed).
+    The kernel path keeps the JAX package's lanes; the generic path (G2)
+    has no kernel shapes to keep, so below 512 points it takes n lanes
+    rounded up to a power of two and scans and folds no padding lanes (the
+    same point)."""
     C = 4096 if n >= (1 << 15) else 512
-    R = -(-n // C)
     if curve._kernel_ok:
-        return C, R, _blind_points(curve)
+        return C, -(-n // C), _blind_points(curve)
+    C = min(C, 1 << max(n - 1, 0).bit_length())
     inf = curve.infinity_xyzz(())
-    return C, R, ((inf, inf), (inf, inf))
+    return C, -(-n // C), ((inf, inf), (inf, inf))
 
 
 def _window_sum_generic(curve: SWCurve, px, py, pinf, dw, C, R, B, d1, d2) -> PointXYZZ:

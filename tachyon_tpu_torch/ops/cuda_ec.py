@@ -55,7 +55,7 @@ import torch
 from tachyon_tpu_torch.fields.limbs import WORD_BITS
 from tachyon_tpu_torch.fields.spec import FieldSpec
 from tachyon_tpu_torch.ops import _build, mont
-from tachyon_tpu_torch.ops.cuda_mont import check_cuda, consts_ptr
+from tachyon_tpu_torch.ops.cuda_mont import check_cuda, consts_ptr, count_launch
 
 
 def _muls(f: FieldSpec, *pairs):
@@ -200,7 +200,7 @@ def add_xyzz(f: FieldSpec, p, q):
     if n:
         _build.launch("tt_add_xyzz", *(t.data_ptr() for t in coords + outs), n,
                       consts_ptr(f), coords[0].shape[0])
-        add_xyzz.launches += 1
+        count_launch(add_xyzz, coords[0].shape[0])
     return tuple(o.view(-1, *batch) for o in outs)
 
 
@@ -214,7 +214,7 @@ def dbl_xyzz(f: FieldSpec, p):
     if n:
         _build.launch("tt_dbl_xyzz", *(t.data_ptr() for t in coords + outs), n,
                       consts_ptr(f), coords[0].shape[0])
-        dbl_xyzz.launches += 1
+        count_launch(dbl_xyzz, coords[0].shape[0])
     return tuple(o.view(-1, *batch) for o in outs)
 
 
@@ -233,7 +233,7 @@ def madd_xyzz(f: FieldSpec, p, qx, qy, qinf):
     if n:
         _build.launch("tt_madd_xyzz", *(t.data_ptr() for t in coords + [flags] + outs), n,
                       consts_ptr(f), coords[0].shape[0])
-        madd_xyzz.launches += 1
+        count_launch(madd_xyzz, coords[0].shape[0])
     return tuple(o.view(-1, *batch) for o in outs)
 
 
@@ -255,7 +255,7 @@ def scalar_mul(f: FieldSpec, px, py, pinf, scalars):
         _build.launch("tt_scalar_mul_xyzz",
                       *(t.data_ptr() for t in coords + [flags, scalars] + outs), n,
                       scalars.shape[0], consts_ptr(f), coords[0].shape[0])
-        scalar_mul.launches += 1
+        count_launch(scalar_mul, coords[0].shape[0])
     return tuple(o.view(-1, *batch) for o in outs)
 
 
@@ -335,7 +335,7 @@ def lane_suffix_scan(f: FieldSpec, u, bias=None):
         buf = torch.empty((2, 4, W, C), dtype=u[0].dtype, device=u[0].device)
         _build.launch("tt_lane_suffix_scan", *(t.data_ptr() for t in u), *bp, buf.data_ptr(),
                       *(o.data_ptr() for o in outs), C, consts_ptr(f), W)
-        lane_suffix_scan.launches += 1
+        count_launch(lane_suffix_scan, W)
     return outs
 
 
@@ -366,7 +366,7 @@ def lane_fold(f: FieldSpec, pts, out=None, bias=None):
                              f"{pts[0].device}")
     _build.launch("tt_lane_fold", *(t.data_ptr() for t in pts), *bp,
                   *(o.data_ptr() for o in out), stride, C, consts_ptr(f), W)
-    lane_fold.launches += 1
+    count_launch(lane_fold, W)
     return tuple(out)
 
 
@@ -396,14 +396,21 @@ def horner(f: FieldSpec, wins, c: int):
     outs = tuple(torch.empty((W,), dtype=t.dtype, device=t.device) for t in wins)
     _build.launch("tt_horner_xyzz", *(t.data_ptr() for t in wins), *(o.data_ptr() for o in outs),
                   nwin, c, consts_ptr(f), W)
-    horner.launches += 1
+    count_launch(horner, W)
     return outs
 
 
 add_xyzz.launches = 0
+add_xyzz.launches_by_w = {}
 dbl_xyzz.launches = 0
+dbl_xyzz.launches_by_w = {}
 madd_xyzz.launches = 0
+madd_xyzz.launches_by_w = {}
 scalar_mul.launches = 0
+scalar_mul.launches_by_w = {}
 lane_suffix_scan.launches = 0
+lane_suffix_scan.launches_by_w = {}
 lane_fold.launches = 0
+lane_fold.launches_by_w = {}
 horner.launches = 0
+horner.launches_by_w = {}

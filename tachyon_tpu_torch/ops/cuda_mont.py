@@ -7,13 +7,15 @@ canonical, over a flat batch of field elements.
 Kernel (``csrc/mont_mul.cu``, ``csrc/field.cuh``): one thread per element,
 word-major ``(W, n)`` layout so that the threads of a warp load neighbouring
 words.  W-word CIOS with 32-bit words (8 rounds for BN254 instead of the
-TPU's 16 rounds of 16-bit limbs).  Where p has a spare bit (p < 2^(32 W -
-1), BN254's Fq and Fr) the rounds are PTX multiply-add chains in sppark's
-even/odd layout; a full-width p (secp256k1) takes 64-bit CIOS products.
-The launcher picks the form from p's top word; the point kernels use the
-spare-bit form only, so ``check_cuda`` refuses them other fields.  Bound
-on the card: at 2^22 elements it moves 96 bytes per element against 136
-word products, so it sits near the memory roofline; on the MSM path it
+TPU's 16 rounds of 16-bit limbs; 12 for BLS12-381's Fq instead of 24).
+At W = 8, where p has a spare bit (p < 2^(32 W - 1), BN254's Fq and Fr)
+the rounds are PTX multiply-add chains in sppark's even/odd layout; a
+full-width p (secp256k1) takes 64-bit CIOS products, and so does every
+W = 12 field.  The launcher picks the form; the point kernels take a
+spare bit (``check_cuda`` refuses them other fields) and W = 8 or 12.
+Bound on the card: at 2^22 elements it moves 96 bytes per element
+against 136 word products at W = 8 (144 against 300 at W = 12), so it
+sits near the memory roofline; on the MSM path it
 runs on one or two elements (``to_affine``) and, on the KZG path, on
 thousands of small batches: there the wrapper's host time per call is the
 cost, so the wrapper does no work that fitting inputs do not need.
@@ -42,8 +44,16 @@ from tachyon_tpu_torch.fields.limbs import int_to_words, n0inv32, word_count
 from tachyon_tpu_torch.ops import _build
 from tachyon_tpu_torch.ops.mont import _consts, csub_p, ripple, widen
 
-SUPPORTED_W = (1, 8)  # word counts K1 is instantiated for (31-bit fields, BN254)
-POINT_W = 8  # the point and MSM kernels: BN254 only
+SUPPORTED_W = (1, 8, 12)  # word counts K1 is instantiated for (31-bit fields, BN254, BLS12-381)
+POINT_W = {8, 12}  # the point and MSM kernels: BN254 and BLS12-381's Fq
+
+
+def count_launch(wrapper, W: int) -> None:
+    """One launch of ``wrapper``'s kernel at W words: ``wrapper.launches``
+    counts every launch, ``wrapper.launches_by_w`` them by word count (K1
+    runs at W = 8 and 12 on the BLS12-381 path)."""
+    wrapper.launches += 1
+    wrapper.launches_by_w[W] = wrapper.launches_by_w.get(W, 0) + 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -70,8 +80,8 @@ def check_cuda(f: FieldSpec, *ts: torch.Tensor, any_width: bool = False) -> int:
     W = word_count(f)
     if W not in SUPPORTED_W:
         raise ValueError(f"{f.name}: no CUDA kernel for W={W} (have {SUPPORTED_W})")
-    if not any_width and W != POINT_W:
-        raise ValueError(f"{f.name}: the point kernels take W = {POINT_W} only, not W={W}")
+    if not any_width and W not in POINT_W:
+        raise ValueError(f"{f.name}: the point kernels take W in {sorted(POINT_W)}, not W={W}")
     if not any_width and not has_spare_bit(f):
         raise ValueError(f"{f.name}: the point kernels need p < 2^{32 * W - 1}")
     dev = ts[0].get_device()
@@ -85,36 +95,28 @@ def check_cuda(f: FieldSpec, *ts: torch.Tensor, any_width: bool = False) -> int:
     return W
 
 
-@functools.lru_cache(maxsize=None)
-def _columns(W: int, device: torch.device) -> torch.Tensor:
-    """(W * 2W,) 16-bit column 2i + j of the partial product a_i * b16_j
-    (a_i a 32-bit word at 2^(32 i), b16_j a 16-bit limb at 2^(16 j))."""
-    i = torch.arange(W, device=device)
-    j = torch.arange(2 * W, device=device)
-    return (2 * i[:, None] + j[None, :]).reshape(-1)
-
-
 def mul_plain(f: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Plain twin of K1: products of a's 32-bit words with b's 16-bit limbs
-    (one broadcasted (W, 2W, *batch) int64 product, each below 2^48) summed
-    into 16-bit columns, L Montgomery rounds on 16-bit digits
-    (``spec.n0inv``), each adding the digit times p's 32-bit words, then
-    32-bit word normalization and one conditional subtract.  Columns stay
-    below 2^53, so int64 never overflows."""
+    (each below 2^48) summed into 16-bit columns, one fused multiply-add of
+    a word by every limb of b at a time (no (W, 2W, *batch) product held),
+    L Montgomery rounds on 16-bit digits (``spec.n0inv``), each adding the
+    digit times p's 32-bit words, then 32-bit word normalization and one
+    conditional subtract.  Columns stay below 2^53, so int64 never
+    overflows."""
     a, b = torch.broadcast_tensors(a, b)
     W = a.shape[0]
     L = 2 * W
     batch = a.shape[1:]
-    wb = widen(b)
+    wa, wb = widen(a), widen(b)
     b16 = torch.stack([wb & 0xFFFF, wb >> 16], dim=1).reshape(L, *batch)
-    prod = widen(a)[:, None] * b16[None, :]  # (W, L, *batch) < 2^48
     cols = torch.zeros((2 * L + 1, *batch), dtype=torch.int64, device=a.device)
-    cols.index_add_(0, _columns(W, a.device), prod.reshape(W * L, *batch))
+    for i in range(W):  # a_i b16_j lands in 16-bit column 2i + j
+        cols[2 * i:2 * i + L].addcmul_(b16, wa[i])
     p32 = _consts(f, a.device)["p"].reshape((W,) + (1,) * len(batch))
     n0 = int(f.n0inv)
     for i in range(L):
         m = ((cols[i] & 0xFFFF) * n0) & 0xFFFF
-        cols[i:i + L:2] += m * p32  # digit m at 2^(16 i) times p's words
+        cols[i:i + L:2].addcmul_(p32, m)  # digit m at 2^(16 i) times p's words
         cols[i + 1] += cols[i] >> 16  # low 16 bits of cols[i] are now zero
     # the high columns as 16-bit limbs plus one carry each, then 32-bit words
     hi = cols[L:]
@@ -172,11 +174,12 @@ def mul1(f: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if n:
         _build.launch("tt_mont_mul1", a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
                       inner, period, consts_ptr(f))
-        mul1.launches += 1
+        count_launch(mul1, 1)
     return out
 
 
 mul1.launches = 0
+mul1.launches_by_w = {}
 
 
 def mul(f: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -195,8 +198,9 @@ def mul(f: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if n:
         _build.launch("tt_mont_mul", a.data_ptr(), b.data_ptr(), out.data_ptr(),
                       n, consts_ptr(f), W)
-        mul.launches += 1
+        count_launch(mul, W)
     return out
 
 
 mul.launches = 0
+mul.launches_by_w = {}

@@ -1,4 +1,5 @@
-"""Native R1CS, the Groth16 toxic-waste setup and the Groth16 prover over BN254.
+"""Native R1CS, the Groth16 toxic-waste setup and the Groth16 prover over
+BN254 and BLS12-381.
 
 Port of ``tachyon_tpu/zk/groth16/r1cs.py``: build a circuit natively, run
 the setup, prove (the witness map's NTTs and the five MSMs on the device)
@@ -19,10 +20,12 @@ the device in bulk:
   above it, the A, B1, B2, L and H sums are device MSMs (B1 is a host loop
   of ``g1_mul`` in the JAX package: the same point).  The witness map runs
   on the port's ``Radix2Domain`` with the three polynomials as one batch.
-* ``verify`` and ``rerandomize`` are host-exact, over ``math/pairing_bn254``.
+* ``verify`` and ``rerandomize`` are host-exact, over the family's pairing
+  module (``math/pairing_bn254``, ``math/pairing_bls12_381``).
 
-Only bn254 is supported: the kernels are instantiated for 8 words, and
-bls12_381's Fq has 12.
+Both families of the JAX package are supported: ``bn254`` (Fq of 8 words)
+and ``bls12_381`` (Fq of 12 words; the kernels are instantiated for both).
+The host point ops take the family's pairing module (BN254's by default).
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ import torch
 
 from tachyon_tpu_torch.fields import limbs
 from tachyon_tpu_torch.math import curves, host_ec
+from tachyon_tpu_torch.math import pairing_bls12_381
 from tachyon_tpu_torch.math import pairing_bn254 as pairing
 from tachyon_tpu_torch.math.ec import AffinePoint, PointXYZZ, SWCurve
 from tachyon_tpu_torch.math.msm import msm
@@ -47,31 +51,32 @@ MSM_HOST_THRESHOLD = 1024
 
 CURVE_FAMILIES = {
     "bn254": dict(g1=curves.bn254_g1, g2=curves.bn254_g2, pairing=pairing),
+    "bls12_381": dict(g1=curves.bls12_381_g1, g2=curves.bls12_381_g2,
+                      pairing=pairing_bls12_381),
 }
 
 
 def _family(name: str) -> dict:
-    if name == "bls12_381":
-        raise NotImplementedError(
-            "bls12_381 waits for W = 12 instantiations of the kernels (K1 mont_mul, the "
-            "point kernels, the ladder, K5/K6, the lane, bucket and Horner kernels; "
-            "ops/cuda_mont.SUPPORTED_W is (1, 8), the point kernels W = 8)")
     if name not in CURVE_FAMILIES:
         raise ValueError(f"unknown curve family {name!r}")
     return CURVE_FAMILIES[name]
 
 
-# --- host exact point ops (BN254) --------------------------------------------
-def g1_add(p, q):
-    return host_ec.affine_add(p, q, 0, pairing.P)
+# --- host exact point ops, over the pairing module f (BN254's by default) ---
+def g1_add(p, q, f=pairing):
+    return host_ec.affine_add(p, q, 0, f.P)
 
 
-def g1_mul(p, k: int):
-    return host_ec.scalar_mul(p, k, 0, pairing.P)
+def g1_mul(p, k: int, f=pairing):
+    return host_ec.scalar_mul(p, k, 0, f.P)
 
 
-g2_add = host_ec.g2_add
-g2_mul = host_ec.g2_mul
+def g2_add(p, q, f=pairing):
+    return host_ec.g2_add(p, q, f)
+
+
+def g2_mul(p, k: int, f=pairing):
+    return host_ec.g2_mul(p, k, f)
 
 
 # --- R1CS ---------------------------------------------------------------------
@@ -240,8 +245,11 @@ def setup(r1cs: R1CS, family: str = "bn254", rng=None,
 
 def params_from_jax(pp) -> Groth16Params:
     """The JAX package's ``Groth16Params`` (a NamedTuple of plain Python
-    values and its ``R1CS``) rebuilt as the port's, so that both packages
-    prove from one key.  Reads attributes only: imports nothing."""
+    values and its ``R1CS``) over either family rebuilt as the port's, so
+    that both packages prove from one key.  Reads attributes only: imports
+    nothing; raises on an unknown family."""
+    _family(str(pp.family))
+
     def g1(pt):
         return None if pt is None else (int(pt[0]), int(pt[1]))
 
@@ -290,6 +298,7 @@ class Groth16:
     def __init__(self, params: Groth16Params, device=torch.device("cuda")):
         self.pp = params
         fam = _family(params.family)
+        self.f = fam["pairing"]
         self.g1, self.g2 = fam["g1"](device), fam["g2"](device)
         self.Fr = self.g1.SF
         self.dom = Radix2Domain(self.Fr, params.n)
@@ -327,10 +336,10 @@ class Groth16:
         if len(query) != len(scalars):
             raise ValueError(f"{len(query)} points vs {len(scalars)} scalars")
         if len(query) <= MSM_HOST_THRESHOLD or dev_pts is None:
-            ks = [int(k) % pairing.R for k in scalars]
+            ks = [int(k) % self.f.R for k in scalars]
             if hasattr(curve.F, "D"):
-                return host_ec.g2_msm(query, ks)
-            return host_ec.msm(query, ks, 0, pairing.P)
+                return host_ec.g2_msm(query, ks, self.f)
+            return host_ec.msm(query, ks, 0, self.f.P)
         return host_point(curve, msm(curve, dev_pts, _scalar_limbs(self.Fr, scalars)))
 
     def prove(self, public: list[int], private: list[int], r: int | None = None,
@@ -339,7 +348,7 @@ class Groth16:
         when not given.  ``timer(name)``, when given, is a context manager
         entered around each step (the witness map, each MSM, the host
         combination)."""
-        pp, rp = self.pp, pairing.R
+        pp, f, rp = self.pp, self.f, self.f.R
         step = timer or (lambda name: contextlib.nullcontext())
         witness = [1] + [v % rp for v in public] + [v % rp for v in private]
         if len(witness) != pp.r1cs.num_vars:
@@ -366,36 +375,36 @@ class Groth16:
             c_h = self._msm_out(self.g1, self._h_pts, pp.h_query, hq) if hq else None
 
         with step("host"):
-            A = g1_add(a_acc, g1_add(pp.alpha1, g1_mul(pp.delta1, r)))
-            B = g2_add(b2_acc, g2_add(pp.beta2, g2_mul(pp.delta2, s)))
-            B1 = g1_add(b1_acc, g1_add(pp.beta1, g1_mul(pp.delta1, s)))
-            C = g1_add(c_l, c_h)
-            C = g1_add(C, g1_mul(A, s))
-            C = g1_add(C, g1_mul(B1, r))
-            C = g1_add(C, g1_mul(pp.delta1, (-r * s) % rp))
+            A = g1_add(a_acc, g1_add(pp.alpha1, g1_mul(pp.delta1, r, f), f), f)
+            B = g2_add(b2_acc, g2_add(pp.beta2, g2_mul(pp.delta2, s, f), f), f)
+            B1 = g1_add(b1_acc, g1_add(pp.beta1, g1_mul(pp.delta1, s, f), f), f)
+            C = g1_add(c_l, c_h, f)
+            C = g1_add(C, g1_mul(A, s, f), f)
+            C = g1_add(C, g1_mul(B1, r, f), f)
+            C = g1_add(C, g1_mul(pp.delta1, (-r * s) % rp, f), f)
         return Groth16Proof(A, B, C)
 
     def rerandomize(self, proof: Groth16Proof) -> Groth16Proof:
         """Fresh-randomness rerandomization: the same statement, an
         unlinkable proof."""
-        rp = pairing.R
+        f, rp = self.f, self.f.R
         r1 = secrets.randbelow(rp - 1) + 1
         r2 = secrets.randbelow(rp)
-        a = g1_mul(proof.a, r1)
-        b = g2_add(g2_mul(proof.b, pow(r1, rp - 2, rp)), g2_mul(self.pp.delta2, r2))
-        c = g1_add(proof.c, g1_mul(a, r2))
+        a = g1_mul(proof.a, r1, f)
+        b = g2_add(g2_mul(proof.b, pow(r1, rp - 2, rp), f), g2_mul(self.pp.delta2, r2, f), f)
+        c = g1_add(proof.c, g1_mul(a, r2, f), f)
         return Groth16Proof(a, b, c)
 
     def verify(self, proof: Groth16Proof, public: list[int]) -> bool:
         """e(A, B) == e(alpha, beta) e(vk_x, gamma) e(C, delta), on the host."""
-        pp, rp = self.pp, pairing.R
+        pp, f, rp = self.pp, self.f, self.f.R
         if proof.a is None or proof.b is None:
             return False
         vk_x = pp.ic[0]
         for i, v in enumerate(public):
-            vk_x = g1_add(vk_x, g1_mul(pp.ic[i + 1], v % rp))
-        neg_a = (proof.a[0], (-proof.a[1]) % pairing.P)
-        return pairing.pairing_product_is_one([
+            vk_x = g1_add(vk_x, g1_mul(pp.ic[i + 1], v % rp, f), f)
+        neg_a = (proof.a[0], (-proof.a[1]) % f.P)
+        return f.pairing_product_is_one([
             (neg_a, proof.b),
             (pp.alpha1, pp.beta2),
             (vk_x, pp.gamma2),

@@ -158,8 +158,9 @@ def test_msm_naive_vs_host(g2):
 
 
 def test_msm_sweep_path_vs_host(g2):
-    """n = 200 > MSM_NAIVE_THRESHOLD, 512 lanes of which 312 are pad lanes
-    at infinity; 128-bit scalars over 13 windows of c = 10."""
+    """n = 200 > MSM_NAIVE_THRESHOLD, 256 lanes (the generic path's power
+    of two at or above n) of which 56 are pad lanes at infinity; 128-bit
+    scalars over 13 windows of c = 10."""
     n = 200
     assert n > MSM_NAIVE_THRESHOLD and n % 512
     rng = np.random.default_rng(15)

@@ -22,8 +22,8 @@ import pytest
 import torch
 
 from tachyon_tpu.zk.groth16 import r1cs as jr1cs
-from tachyon_tpu_torch.math import curves
-from tachyon_tpu_torch.zk.groth16 import r1cs
+from tachyon_tpu_torch.math import curves, pairing_bls12_381
+from tachyon_tpu_torch.zk.groth16 import circuits, r1cs
 
 torch.set_num_threads(1)
 
@@ -123,10 +123,18 @@ def test_params_from_jax_round_trip(fx):
 
 
 def test_families_and_lagrange():
-    """bls12_381 raises, naming the kernel instantiations it waits for; the
+    """bls12_381 runs: the toy circuit's setup, prove and verify round trip
+    (its params and proof against the JAX package in
+    ``test_torch_bls12_groth16.py``); an unknown family raises; the
     batch-inverted Lagrange values equal the JAX package's Fermat ones."""
-    with pytest.raises(NotImplementedError, match="W = 12"):
-        r1cs.setup(maker().inputs("mul")[0](r1cs.R1CS)[0], "bls12_381", device="cpu")
+    circuit, public, private = circuits.mul_circuit(r=pairing_bls12_381.R)
+    secrets = iter([11, 12, 13, 14, 15]).__next__
+    g16 = r1cs.Groth16(r1cs.setup(circuit, "bls12_381", rng=secrets, device="cpu"), device="cpu")
+    proof = g16.prove(public, private, r=5, s=6)
+    assert g16.verify(proof, public) is True
+    assert g16.verify(proof, [public[0] + 1]) is False
+    with pytest.raises(ValueError, match="unknown curve family"):
+        r1cs.setup(circuit, "bls12_377", device="cpu")
     Fr = curves.bn254_fr("cpu")
     omega = Fr.spec.root_of_unity(16)
     for tau in (12345, omega ** 3 % Fr.p):  # a tau on the domain gives zeros

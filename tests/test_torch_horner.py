@@ -1,4 +1,5 @@
-"""Horner's step of the MSM, on CPU (BN254 G1).
+"""Horner's step of the MSM, on CPU (BN254 G1, and BLS12-381 G1 for the
+kernel's W = 12 instantiation).
 
 On the card it is one launch (``cuda_ec.horner``) with the order of
 operations of the JAX package's Horner loop (``tachyon_tpu/math/msm.py``:
@@ -28,16 +29,16 @@ torch.set_num_threads(1)
 
 
 @functools.lru_cache(maxsize=None)
-def jax_steps():
-    """The JAX package's double and add, each compiled once (op by op they
-    take several times as long on this CPU)."""
-    jc = jcurves.bn254_g1()
+def jax_steps(curve: str):
+    """The JAX package's double and add on ``curve``, each compiled once (op
+    by op they take as long or longer on this CPU)."""
+    jc = getattr(jcurves, curve)()
     return jc, jax.jit(jc._dbl_xyzz_jnp), jax.jit(jc._add_xyzz_jnp)
 
 
-def jax_horner(wins, c: int):
+def jax_horner(wins, c: int, curve: str = "bn254_g1"):
     """The JAX package's Horner loop on JAX limbs."""
-    jc, dbl, add = jax_steps()
+    jc, dbl, add = jax_steps(curve)
     j = [np.asarray(limbs.to_jax_limbs(t)) for t in wins]
     acc = jc.infinity_xyzz(())
     for k in range(j[0].shape[1] - 1, -1, -1):
@@ -47,12 +48,13 @@ def jax_horner(wins, c: int):
     return acc
 
 
-@pytest.mark.parametrize("nwin,c,seed", [(5, 3, 1), (6, 2, 2)])
-def test_horner_equals_jax(nwin, c, seed):
-    curve = curves.bn254_g1("cpu")
+@pytest.mark.parametrize("name,nwin,c,seed", [("bn254_g1", 5, 3, 1), ("bn254_g1", 6, 2, 2),
+                                               ("bls12_381_g1", 4, 1, 141)])
+def test_horner_equals_jax(name, nwin, c, seed):
+    curve = getattr(curves, name)("cpu")
     wins, want_aff, _ = chip_smoke.horner_windows(curve, nwin, c, seed)
     got = cuda_ec.horner_plain(curve.F.spec, wins, c)
-    for w, g in zip(jax_horner(wins, c), got):
+    for w, g in zip(jax_horner(wins, c, name), got):
         np.testing.assert_array_equal(limbs.to_jax_limbs(g), np.asarray(w))
     aff = curve.to_affine(PointXYZZ(*(t[:, None] for t in got)))
     assert chip_smoke.sampled_points(curve, aff, [0]) == [want_aff]

@@ -23,14 +23,14 @@ from tachyon_tpu_torch.ops import cuda_ec
 
 torch.set_num_threads(1)
 
-P = jcurves.bn254_g1().F.p
-G = (1, 2)
 
-
-def lanes(C):
-    """C XYZZ points as JAX limbs (16, C) x 4, lifted (zz != 1).  Lanes 1
-    and C - 2 are infinity; u[3] = u[4] (the scan's first step adds them:
-    a double); u[6] = -u[5] (cancels to infinity)."""
+def lanes(C, curve: str = "bn254_g1"):
+    """C XYZZ points of the JAX package's ``curve`` (a G1) as JAX limbs
+    (L, C) x 4, lifted (zz != 1).  Lanes 1 and C - 2 are infinity; u[3] =
+    u[4] (the scan's first step adds them: a double); u[6] = -u[5]
+    (cancels to infinity)."""
+    jc = getattr(jcurves, curve)()
+    P, G = jc.F.p, (jc.gen_x, jc.gen_y)
     rng = np.random.default_rng(60 + C)
     pts = [host_ec.scalar_mul(G, int(k), 0, P) for k in rng.integers(1, 1 << 30, C)]
     pts[4] = pts[3]
@@ -39,7 +39,7 @@ def lanes(C):
     rows = [(x * l * l % P, y * l * l * l % P, l * l % P, l * l * l % P)
             for (x, y), l in zip(pts, lam)]
     rows[1] = rows[C - 2] = (0, 0, 0, 0)
-    F = jcurves.bn254_g1().F
+    F = jc.F
     return tuple(F.encode(np.array([r[k] for r in rows], dtype=object)) for k in range(4))
 
 

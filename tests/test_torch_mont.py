@@ -82,11 +82,13 @@ def test_elementwise_vs_jax(f, op):
     assert_same(want, got)
 
 
-@pytest.mark.parametrize("f", FIELDS + [presets.SECP256K1_FQ], ids=lambda f: f.name)
+@pytest.mark.parametrize("f", FIELDS + [presets.SECP256K1_FQ, presets.BLS12_381_FQ],
+                         ids=lambda f: f.name)
 def test_mul_edge_operands_vs_jax(f):
     """K1's edge operands as the words a kernel sees: 0, 1, mont(1) = R mod
     p, 2 and p - 1, every pair (so (p - 1)^2 too); secp256k1's p is full
-    width (the kernels' 64-bit CIOS form of the multiply)."""
+    width and BLS12-381's Fq 12 words (the kernels' 64-bit CIOS form of the
+    multiply)."""
     vals = [0, 1, f.R_mod_p, 2, f.p - 1]
     xs, ys = [x for x in vals for _ in vals], [y for _ in vals for y in vals]
     ja, jb = (jnp.asarray(np.stack([int_to_limbs(v, f.L) for v in vs], axis=-1))
@@ -158,11 +160,14 @@ def test_point_repack_and_input_checks():
         limbs.int_to_words(f.p << 256, 8)
     with pytest.raises(ValueError):
         mont.batch_inverse(f, aff.x, axis=0)
-    # the kernels take CUDA int32 words of BN254-size fields only
+    # the kernels take CUDA int32 words of fields of 1, 8 or 12 words only
     with pytest.raises(ValueError):
         cuda_mont.check_cuda(f, aff.x)
     with pytest.raises(ValueError):
         cuda_mont.check_cuda(presets.BLS12_381_FQ, aff.x)
+    assert cuda_mont.SUPPORTED_W == (1, 8, 12) and cuda_mont.POINT_W == {8, 12}
+    with pytest.raises(ValueError, match="no CUDA kernel for W=2"):
+        cuda_mont.check_cuda(presets.GOLDILOCKS, aff.x)
     # and the point kernels only fields with a spare bit (K1 takes any p)
     assert cuda_mont.has_spare_bit(f) and not cuda_mont.has_spare_bit(presets.SECP256K1_FQ)
     with pytest.raises(ValueError, match="point kernels"):
@@ -173,8 +178,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
     """curves.*, PrimeField and mont.zeros/ones default to CUDA; with no CUDA
     device a call left at its default raises instead of taking the CPU."""
     cuda = torch.device("cuda")
-    for fn in (curves.bn254_fq, curves.bn254_fr, curves.bn254_g1, field.PrimeField,
-               mont.zeros, mont.ones):
+    for fn in (curves.bn254_fq, curves.bn254_fr, curves.bn254_g1, curves.bls12_381_fq,
+               curves.bls12_381_g1, curves.bls12_381_g2, field.PrimeField, mont.zeros,
+               mont.ones):
         assert inspect.signature(fn).parameters["device"].default == cuda, fn
     no_card = not torch.cuda.is_available()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -1,4 +1,5 @@
-"""K6's segmented schedule, on CPU (BN254 G1).
+"""K6's segmented schedule, on CPU (BN254 G1, and BLS12-381 G1 for the
+kernel's W = 12 instantiation).
 
 On the card K6 cuts each lane's R rows into S segments: phase 1 sums a
 segment from the blind D, T[s] = D + partial; phase 2 adds a lane's
@@ -26,8 +27,6 @@ from tachyon_tpu_torch.ops import cuda_msm
 
 torch.set_num_threads(1)
 
-P = jcurves.bn254_g1().F.p
-G = (1, 2)
 C = 4
 
 
@@ -37,8 +36,11 @@ def rows_to_port(t):
 
 
 @functools.lru_cache(maxsize=None)
-def pool(R):
-    """R x C random XYZZ points as ints, lifted by random lambdas (zz != 1)."""
+def pool(R, curve: str = "bn254_g1"):
+    """R x C random XYZZ points of the JAX package's ``curve`` as ints,
+    lifted by random lambdas (zz != 1)."""
+    jc = getattr(jcurves, curve)()
+    P, G = jc.F.p, (jc.gen_x, jc.gen_y)
     rng = np.random.default_rng(50 + R)
     pts = [host_ec.scalar_mul(G, int(k), 0, P) for k in rng.integers(1, 1 << 30, R * C)]
     lam = [int(v) for v in rng.integers(2, 1 << 62, R * C)]
@@ -46,12 +48,13 @@ def pool(R):
             for (x, y), l in zip(pts, lam)], rng.random((R, C)) < 0.25
 
 
-def case(R, S):
-    """Rows (R, 16, C) x 4 as JAX limbs for S segments of ceil(R / S).
+def case(R, S, curve: str = "bn254_g1"):
+    """Rows (R, L, C) x 4 as JAX limbs for S segments of ceil(R / S).
     Lanes 0 and 3: random points with infinity holes; lane 1: segment 1 at
     infinity (or, at S = 1, every row); lane 2: its first two segments hold
     the same rows, so their sums are equal."""
-    pts, holes = pool(R)
+    pts, holes = pool(R, curve)
+    jc = getattr(jcurves, curve)()
     L = -(-R // S)
     grid = [[pts[r * C + c] for c in range(C)] for r in range(R)]
     live = ~holes
@@ -61,28 +64,31 @@ def case(R, S):
             live[r, 1] = False
         if S > 1 and L <= r < 2 * L:
             grid[r][2] = grid[r - L][2]
-    F = jcurves.bn254_g1().F
+    F = jc.F
     coords = []
     for k in range(4):
         v = np.array([[grid[r][c][k] if live[r, c] else 0 for c in range(C)] for r in range(R)],
                      dtype=object)
-        coords.append(np.ascontiguousarray(F.encode(v.reshape(-1)).reshape(16, R, C)
+        coords.append(np.ascontiguousarray(F.encode(v.reshape(-1)).reshape(F.L, R, C)
                                            .transpose(1, 0, 2)))
-    (_, _), (d2, _) = jmsm._blind_points(jcurves.bn254_g1())
-    d = tuple(np.broadcast_to(np.asarray(t)[:, None], (16, C)).copy() for t in d2)
+    (_, _), (d2, _) = jmsm._blind_points(jc)
+    d = tuple(np.broadcast_to(np.asarray(t)[:, None], (F.L, C)).copy() for t in d2)
     return coords, d
 
 
-@pytest.mark.parametrize("R,S,F", [(12, 1, 1), (12, 3, 2), (12, 4, 2), (12, 4, 1),
-                                   (13, 4, 2), (2, 2, 1)])
-def test_segmented_reduce_equals_jax(R, S, F):
+@pytest.mark.parametrize("curve,R,S,F", [
+    ("bn254_g1", 12, 1, 1), ("bn254_g1", 12, 3, 2), ("bn254_g1", 12, 4, 2),
+    ("bn254_g1", 12, 4, 1), ("bn254_g1", 13, 4, 2), ("bn254_g1", 2, 2, 1),
+    ("bls12_381_g1", 5, 3, 2), ("bls12_381_g1", 5, 3, 1)])
+def test_segmented_reduce_equals_jax(curve, R, S, F):
     """F threads per lane in the combine: the tree (pairs first), or 1, the
     chain."""
-    rows, d = case(R, S)
-    want = pallas_msm.reduce_sweep_jnp(jcurves.bn254_g1(), tuple(jnp.asarray(t) for t in rows),
+    rows, d = case(R, S, curve)
+    want = pallas_msm.reduce_sweep_jnp(getattr(jcurves, curve)(),
+                                       tuple(jnp.asarray(t) for t in rows),
                                        tuple(jnp.asarray(t) for t in d))
     want = tuple(limbs.from_jax_limbs(np.asarray(t)) for t in want)
-    f = curves.bn254_g1("cpu").F.spec
+    f = getattr(curves, curve)("cpu").F.spec
     trows = tuple(rows_to_port(t) for t in rows)
     td = tuple(limbs.from_jax_limbs(t) for t in d)
     seq = cuda_msm.reduce_sweep_plain(f, trows, td)

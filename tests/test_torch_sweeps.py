@@ -1,4 +1,5 @@
-"""K5's segmented schedule, on CPU (BN254 G1).
+"""K5's segmented schedule, on CPU (BN254 G1, and BLS12-381 G1 for the
+kernel's W = 12 instantiation).
 
 On the card K5 cuts each lane's R rows into S segments and runs three
 launches (segment totals from the blind D, carries with the complete add,
@@ -8,6 +9,7 @@ JAX package's ``suffix_sweep_jnp`` in every row and its words in the top
 segment.  The lanes hold the cases the carries must take: a segment whose
 rows are all at infinity (T = D), the top segment at infinity (the carry
 doubles D), equal segment sums (the carry doubles), a ragged top segment.
+The blind D is the JAX package's, which the port's draws must equal.
 Also here: the point-equality and row-tiling helpers of ``chip_smoke.py`` and K5's segment
 count.
 """
@@ -24,12 +26,11 @@ from tachyon_tpu.math import msm as jmsm
 from tachyon_tpu.ops import pallas_msm
 from tachyon_tpu_torch.fields import limbs
 from tachyon_tpu_torch.math import curves, host_ec
+from tachyon_tpu_torch.math import msm as tmsm
 from tachyon_tpu_torch.ops import cuda_msm
 
 torch.set_num_threads(1)
 
-P = jcurves.bn254_g1().F.p
-G = (1, 2)
 C = 4
 
 
@@ -39,23 +40,24 @@ def rows_to_port(t):
 
 
 @functools.lru_cache(maxsize=None)
-def sweep_case(R):
-    """Sweep inputs of R rows x 4 lanes as JAX limbs.  Lane 0: random
-    points and flags; lane 1: one point on every row (segments of equal
-    length have equal sums); lanes 2 and 3 are set at infinity per S by
-    ``flags``."""
+def sweep_case(R, curve: str = "bn254_g1"):
+    """Sweep inputs of R rows x 4 lanes of the JAX package's ``curve`` as
+    JAX limbs.  Lane 0: random points and flags; lane 1: one point on every
+    row (segments of equal length have equal sums); lanes 2 and 3 are set
+    at infinity per S by ``flags``."""
+    jc = getattr(jcurves, curve)()
+    P, G, F = jc.F.p, (jc.gen_x, jc.gen_y), jc.F
     rng = np.random.default_rng(40 + R)
     pool = [host_ec.scalar_mul(G, int(k), 0, P) for k in rng.integers(1, 1 << 30, R * C)]
     for r in range(R):
         pool[r * C + 1] = pool[1]
-    F = jcurves.bn254_g1().F
-    x = F.encode(np.array([p[0] for p in pool], dtype=object)).reshape(16, R, C)
-    y = F.encode(np.array([p[1] for p in pool], dtype=object)).reshape(16, R, C)
+    x = F.encode(np.array([p[0] for p in pool], dtype=object)).reshape(F.L, R, C)
+    y = F.encode(np.array([p[1] for p in pool], dtype=object)).reshape(F.L, R, C)
     x, y = np.ascontiguousarray(x.transpose(1, 0, 2)), np.ascontiguousarray(y.transpose(1, 0, 2))
     inf = (rng.random((R, 1, C)) < 0.25).astype(np.uint32)
     inf[:, 0, 1] = 0
-    (d1, _), _ = jmsm._blind_points(jcurves.bn254_g1())
-    d = tuple(np.broadcast_to(np.asarray(t)[:, None], (16, C)).copy() for t in d1)
+    (d1, _), _ = jmsm._blind_points(jc)
+    d = tuple(np.broadcast_to(np.asarray(t)[:, None], (F.L, C)).copy() for t in d1)
     return x, y, inf, d
 
 
@@ -69,14 +71,16 @@ def flags(inf, R, S):
     return inf
 
 
-@pytest.mark.parametrize("R,S", [(12, 1), (12, 3), (12, 4), (13, 3), (13, 4)])
-def test_segmented_sweep_equals_jax_as_points(R, S):
-    x, y, inf0, d = sweep_case(R)
+@pytest.mark.parametrize("curve,R,S", [
+    ("bn254_g1", 12, 1), ("bn254_g1", 12, 3), ("bn254_g1", 12, 4), ("bn254_g1", 13, 3),
+    ("bn254_g1", 13, 4), ("bls12_381_g1", 5, 3)])
+def test_segmented_sweep_equals_jax_as_points(curve, R, S):
+    x, y, inf0, d = sweep_case(R, curve)
     inf = flags(inf0, R, S)
-    want = pallas_msm.suffix_sweep_jnp(jcurves.bn254_g1(), jnp.asarray(x), jnp.asarray(y),
+    want = pallas_msm.suffix_sweep_jnp(getattr(jcurves, curve)(), jnp.asarray(x), jnp.asarray(y),
                                        jnp.asarray(inf), tuple(jnp.asarray(t) for t in d))
     want = tuple(rows_to_port(np.asarray(t)) for t in want)
-    f = curves.bn254_g1("cpu").F.spec
+    f = getattr(curves, curve)("cpu").F.spec
     tx, ty = rows_to_port(x), rows_to_port(y)
     tinf = torch.from_numpy(inf.astype(np.int32))
     td = tuple(limbs.from_jax_limbs(t) for t in d)
@@ -93,6 +97,17 @@ def test_segmented_sweep_equals_jax_as_points(R, S):
     # below the top segment the words move (same points, other scalings)
     moved = any(not torch.equal(g[:top], w[:top]) for g, w in zip(got, want))
     assert moved == (S > 1)
+
+
+@pytest.mark.parametrize("curve", ["bn254_g1", "bls12_381_g1"])
+def test_blind_points_equal_jax(curve):
+    """The MSM's blinds D1, D2 and their negations, as the port draws them,
+    are the JAX package's words (the sweeps' raw words compare)."""
+    jb = jmsm._blind_points(getattr(jcurves, curve)())
+    tb = tmsm._blind_points(getattr(curves, curve)("cpu"))
+    for (jd, jnd), (td, tnd) in zip(jb, tb):
+        for j, t in zip((*jd, *jnd), (*td, *tnd)):
+            np.testing.assert_array_equal(limbs.to_jax_limbs(t), np.asarray(j))
 
 
 def test_same_points_rejects_tampering_and_infinity():
