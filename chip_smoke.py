@@ -101,15 +101,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    tuple, a wrong witness's proof fails, 64 sampled a_query and b2_query
    points are on their curves; with peak memory and the launch counts by
    word count (the ladder once, Horner 4 times, K2 never at W = 12);
-10. prints the card's line, the kernels' JSON line (an entry for every
-   kernel at W = 8, K1 at W = 1, and every kernel at W = 12 named
-   ``<name>_w12``), then the result line
+10. secp256k1: every kernel's full-width instantiation (W = 8 on a p of a
+   full 256 bits: the 64-bit CIOS multiply) against its plain twin on the
+   card, word for word, at the 2^22 MSM's shapes (SECP_SIZES: K1 at
+   (8, 2^22); K2, K3 and K4 at (8, 2^20); the ladder at 2^20 lanes; K5 at
+   (1024, 8, 4096); K6 at (256, 8, 512); the lane scan at 4096 and the fold
+   at 512 lanes; the bucket kernel at 2^17 buckets; Horner at 16 windows of
+   17 bits), each timed beside its bound; then the secp256k1 MSM at 2^22
+   (256 multiples of G tiled, scalars uniform below the group order)
+   against the host-exact point, timed MSM_RUNS times, with no spare-bit
+   kernel launched and each sweep kernel full-width; the naive MSM of 128
+   points (the ladder and K2's tree) against host ints; GLV at 2^20 (2^21
+   points of 130 bits), its host decomposition timed apart, against the
+   plain MSM and the host point; FixedBaseMSM on G at 2^20 scalars (c = 8),
+   64 sampled results against host multiples; the MSM at 2^20 over Pallas
+   and over Vesta (spare-bit kernels only) against host points;
+11. prints the card's line, the kernels' JSON line (an entry for every
+   kernel at W = 8 on a spare bit, K1 at W = 1, every kernel at W = 12
+   named ``<name>_w12`` and every full-width W = 8 instantiation named
+   ``<name>_w8_full``), then the result line
    {"ok": true, "device": {"platform": "gpu", ...}} last.
 
-Each main path (4, 5, 6, 7, 8's PCS and uni-STARK runs, and 9) runs with
+Each main path (4, 5, 6, 7, 8's PCS and uni-STARK runs, 9 and 10's) runs with
 every launch count set to 0 just before it, and fails if a kernel of that
 path (MSM_PATH, KZG_PATH, GROTH16_PATH, CIRCOM_PATH, STARK_PATH) was
-launched no time.  Phase 3 also holds, at
+launched no time; the launches are also counted by instantiation
+(``cuda_mont.Form.tag``: w8_spare, w8_full, w12_full, w1_full).  Phase 3 also holds, at
 the 2^18 paths' shapes (c = 14), K5 at the Groth16 path's (65, 8, 4096)
 and the circom path's (64, 8, 4096), K6 at their (32, 8, 512), the bucket
 kernel on T rows (64, 8, 4096) and (65, 8, 4096) with 2^14 buckets into
@@ -139,7 +156,7 @@ from tachyon_tpu_torch.crypto.challenger import DuplexChallenger
 from tachyon_tpu_torch.crypto.fri import FRIConfig, TwoAdicFRIPCS
 from tachyon_tpu_torch.fields import extensions, limbs, presets
 from tachyon_tpu_torch.io.zkey import parse_wtns, parse_zkey
-from tachyon_tpu_torch.math import curves, host_ec
+from tachyon_tpu_torch.math import curves, fixed_msm, glv, host_ec
 from tachyon_tpu_torch.math.ec import AffinePoint, PointXYZZ
 from tachyon_tpu_torch.math.msm import _blind_points, _bcast, msm, optimal_window_bits
 from tachyon_tpu_torch.math.field import PrimeField
@@ -1202,7 +1219,7 @@ KZG_K2 = 2 * 6 + 1
 def reset_launches() -> None:
     for wrapper, _, _ in KERNELS.values():
         wrapper.launches = 0
-        wrapper.launches_by_w = {}
+        wrapper.launches_by_form = {}
 
 
 def read_launches(path) -> dict:
@@ -1213,6 +1230,45 @@ def read_launches(path) -> dict:
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     return launches
+
+
+def affine_ints(curve, aff) -> tuple:
+    return int(curve.F.decode(aff.x)), int(curve.F.decode(aff.y))
+
+
+def verified_msm(curve, name: str, run, expected, path, runs: int) -> dict:
+    """``run()`` (an MSM, XYZZ) with every launch count set to 0 just
+    before it: its affine point must be on the curve and equal ``expected``
+    and every kernel of ``path`` must have launched; then timed ``runs``
+    times (CUDA events).  Returns its numbers and launches by instantiation."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    aff = curve.to_affine(run())
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_launches(path)
+    by_form = {tag: launches_at(tag) for tag in FORM_TAGS}
+    peak = torch.cuda.max_memory_allocated()
+    if aff.x.shape != (curve.F.W,) or bool(aff.inf) or not bool(curve.is_on_curve(aff)):
+        raise AssertionError(f"{name}: the result is malformed or off the curve")
+    if affine_ints(curve, aff) != expected:
+        raise AssertionError(f"{name}: {affine_ints(curve, aff)} != host-exact {expected}")
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        aff = curve.to_affine(run())
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
+    if affine_ints(curve, aff) != expected:
+        raise AssertionError(f"{name}: the result changed between runs")
+    rec = {"first_s": first_s, "runs_s": times, "best_s": min(times, default=first_s),
+           "peak_mem_bytes": peak, "launches": launches, "launches_by_form": by_form}
+    log(f"[msm] {name} verified=True {json.dumps(rec)}")
+    return rec
 
 
 def phase_slice(device):
@@ -1226,28 +1282,9 @@ def phase_slice(device):
     expected = host_ec.msm_tiled(G, ks, sc, 0, F.p, SF.p)
     host_s = time.perf_counter() - t0
     del sc
-
-    def run():
-        return curve.to_affine(msm(curve, points, scalars))
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    t0 = time.perf_counter()
-    aff = run()
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    launches = read_launches(MSM_PATH)
-    peak = torch.cuda.max_memory_allocated()
-
-    if aff.x.shape != (F.W,) or bool(aff.inf):
-        raise AssertionError(f"MSM result malformed: shape {tuple(aff.x.shape)} inf {bool(aff.inf)}")
-    if not bool(curve.is_on_curve(aff)):
-        raise AssertionError("MSM result is not on the curve")
-    got = (int(F.decode(aff.x)), int(F.decode(aff.y)))
-    if got != expected:
-        raise AssertionError(f"MSM result {got} != host-exact {expected}")
-
+    rec = verified_msm(curve, f"bn254_g1 msm 2^{LOG_N}", lambda: msm(curve, points, scalars),
+                       expected, MSM_PATH, MSM_RUNS)
+    launches = rec["launches"]
     c = optimal_window_bits(SF.spec.bits, n)
     nwin = -(-SF.spec.bits // c)
     if launches["add_xyzz"] != K2_PER_WINDOW * nwin or launches["bucket_add"] != nwin:
@@ -1257,19 +1294,10 @@ def phase_slice(device):
     if launches["horner"] != 1 or launches["dbl_xyzz"] != 0:
         raise AssertionError(f"one MSM launched Horner {launches['horner']} times and K3 "
                              f"{launches['dbl_xyzz']} times, not 1 and 0")
-    times = []
-    for _ in range(MSM_RUNS):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        aff = run()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / 1e3)
-    if (int(F.decode(aff.x)), int(F.decode(aff.y))) != expected:
-        raise AssertionError("MSM result changed between runs")
     log(f"[slice] bn254_g1 msm+to_affine n=2^{LOG_N} c={c} verified=True "
-        f"first_s={first_s:.4f} runs_s={times} best_s={min(times):.4f} "
-        f"peak_mem_bytes={peak} host_expected_s={host_s:.3f} launches={json.dumps(launches)}")
+        f"first_s={rec['first_s']:.4f} runs_s={rec['runs_s']} best_s={rec['best_s']:.4f} "
+        f"peak_mem_bytes={rec['peak_mem_bytes']} host_expected_s={host_s:.3f} "
+        f"launches={json.dumps(launches)}")
     return launches
 
 
@@ -1872,72 +1900,84 @@ BLS_SIZES = {
     "bucket": (1 << 13, 512),   # B = 2^c and C2
     "horner": (20, 13),         # windows and c of a 2^17-point MSM of 255-bit scalars
 }
-# the kernels of every W = 12 instantiation, by JSON name (registers by
-# their ptxas names)
+# the kernels of every instantiation, by JSON name, registers by their
+# ptxas names and template arguments: W and the multiply's form (1 for the
+# spare-bit chains, 0 for the 64-bit CIOS)
 DEVICE_KERNELS = {
     "mont_mul": ["mont_mul_kernel<{W},{spare}>"],
     "mont_mul_w1": ["mont_mul1_kernel<0>", "mont_mul1_kernel<1>"],
-    "add_xyzz": ["add_xyzz_kernel<{W}>"], "dbl_xyzz": ["dbl_xyzz_kernel<{W}>"],
-    "madd_xyzz": ["madd_xyzz_kernel<{W}>"], "scalar_mul_xyzz": ["scalar_mul_xyzz_kernel<{W}>"],
-    "suffix_sweep": ["suffix_totals_kernel<{W}>", "suffix_carries_kernel<{W}>",
-                     "suffix_emit_kernel<{W}>"],
-    "reduce_sweep": ["reduce_partials_kernel<{W}>", "reduce_combine_kernel<{W}>"],
-    "lane_suffix_scan": ["lane_suffix_scan_kernel<{W}>"], "lane_fold": ["lane_fold_kernel<{W}>"],
-    "horner": ["horner_xyzz_kernel<{W}>"], "bucket_add": ["bucket_add_kernel<{W}>"],
+    "add_xyzz": ["add_xyzz_kernel<{W},{spare}>"], "dbl_xyzz": ["dbl_xyzz_kernel<{W},{spare}>"],
+    "madd_xyzz": ["madd_xyzz_kernel<{W},{spare}>"],
+    "scalar_mul_xyzz": ["scalar_mul_xyzz_kernel<{W},{spare}>"],
+    "suffix_sweep": ["suffix_totals_kernel<{W},{spare}>", "suffix_carries_kernel<{W},{spare}>",
+                     "suffix_emit_kernel<{W},{spare}>"],
+    "reduce_sweep": ["reduce_partials_kernel<{W},{spare}>",
+                     "reduce_combine_kernel<{W},{spare}>"],
+    "lane_suffix_scan": ["lane_suffix_scan_kernel<{W},{spare}>"],
+    "lane_fold": ["lane_fold_kernel<{W},{spare}>"],
+    "horner": ["horner_xyzz_kernel<{W},{spare}>"],
+    "bucket_add": ["bucket_add_kernel<{W},{spare}>"],
 }
 
 
-def bls12_kernels(device, clock_hz, results) -> dict:
-    """Every kernel's W = 12 instantiation against its plain twin on the
-    card, word for word, at the BLS12-381 path's shapes (BLS_SIZES), timed
-    beside its bound at 300 word products a field multiply; K1 also on
-    edge operands, K5 also as points against the sequential twin.  Returns
-    the extra numbers of the JSON entries."""
+def width_kernels(curve, sizes, seed: int, clock_hz, results) -> dict:
+    """Every kernel's instantiation for ``curve``'s field against its plain
+    twin on the card, word for word, at ``sizes`` (BLS_SIZES, SECP_SIZES:
+    a path's shapes), timed beside its bound at 2 W^2 + W word products a
+    field multiply; K1 also on edge operands and on the scalar field, K5
+    also as points against the sequential twin (on the first c0 lanes where
+    a K5 shape gives a third number).  Returns the extra numbers of the
+    JSON entries."""
+    device = curve.device
     g = torch.Generator(device=device)
-    g.manual_seed(SEED + 9)
-    curve = curves.bls12_381_g1(device)
+    g.manual_seed(seed)
     fq = curve.F.spec
-    _, base_x, base_y = base_points(curve, np.random.default_rng(SEED + 9))
+    _, base_x, base_y = base_points(curve, np.random.default_rng(seed))
     extra = {}
 
-    k1_random_check(fq, BLS_SIZES["k1"], g, device, clock_hz, results)
+    k1_random_check(fq, sizes["k1"], g, device, clock_hz, results)
     k1_edges_check(fq, device)
+    k1_edges_check(curve.SF.spec, device)
 
-    got = k2_check(fq, base_x, base_y, BLS_SIZES["point"], clock_hz, results)
-    k3_check(fq, got, BLS_SIZES["point"], clock_hz, results)
+    got = k2_check(fq, base_x, base_y, sizes["point"], clock_hz, results)
+    k3_check(fq, got, sizes["point"], clock_hz, results)
     del got
-    k4_check(fq, base_x, base_y, BLS_SIZES["point"], g, clock_hz, results)
-    ladder_check(curve, base_x, base_y, *BLS_SIZES["ladder"], g, clock_hz, results)
+    k4_check(fq, base_x, base_y, sizes["point"], g, clock_hz, results)
+    ladder_check(curve, base_x, base_y, *sizes["ladder"], g, clock_hz, results)
 
     (d1, nd1), (d2, nd2) = _blind_points(curve)
     shapes = []
-    for R, C in BLS_SIZES["k5"]:
+    for R, C, *c0 in sizes["k5"]:
         suf, _, rec = k5_check(fq, *k5_rows(base_x, base_y, R, C, g), tuple(_bcast(d1, (C,))),
-                               clock_hz, results)
+                               clock_hz, results, *c0, reps=3 if c0 else 20)
         shapes.append(rec)
     extra["suffix_sweep"] = {"shapes": shapes}
-    extra["reduce_sweep"] = k6_check(fq, suf, d2, g, clock_hz, results, BLS_SIZES["k6"],
+    extra["reduce_sweep"] = k6_check(fq, suf, d2, g, clock_hz, results, sizes["k6"],
                                      sweep=False)
-    lane_check(fq, "lane_suffix_scan", suf, BLS_SIZES["scan"], tuple(nd1), g, clock_hz, results)
-    lane_check(fq, "lane_fold", suf, BLS_SIZES["fold"], tuple(nd2), g, clock_hz, results)
-    extra["bucket_add"] = bucket_check(fq, suf, g, clock_hz, results, *BLS_SIZES["bucket"])[1]
-    hr = horner_check(curve, clock_hz, results, *BLS_SIZES["horner"])
+    lane_check(fq, "lane_suffix_scan", suf, sizes["scan"], tuple(nd1), g, clock_hz, results)
+    lane_check(fq, "lane_fold", suf, sizes["fold"], tuple(nd2), g, clock_hz, results)
+    extra["bucket_add"] = bucket_check(fq, suf, g, clock_hz, results, *sizes["bucket"])[1]
+    hr = horner_check(curve, clock_hz, results, *sizes["horner"])
     extra["horner"] = {"k3_k2_loop_ms": hr["k3_k2_loop_ms"], "chain": hr["chain"]}
     return extra
 
 
-def launches_at(W: int) -> dict:
-    """Each kernel's launches at W words since the counts were set to 0."""
-    return {name: k[0].launches_by_w.get(W, 0) for name, k in KERNELS.items()}
+FORM_TAGS = ("w1_full", "w8_spare", "w8_full", "w12_full")  # every cuda_mont.Form.tag
+
+
+def launches_at(tag: str) -> dict:
+    """Each kernel's launches at one instantiation (``cuda_mont.Form.tag``:
+    w8_spare, w8_full, w12_full, w1_full) since the counts were set to 0."""
+    return {name: k[0].launches_by_form.get(tag, 0) for name, k in KERNELS.items()}
 
 
 def phase_groth16_bls12(device, clock_hz, results):
-    """Phase 9: the W = 12 kernels against their twins (``bls12_kernels``),
+    """Phase 9: the W = 12 kernels against their twins (``width_kernels``),
     then the native Groth16 prover over BLS12-381 at 2^BLS_LOG_N
     constraints through the port's entry points (setup, Groth16, prove at
     fixed r and s, verify), each step timed and the proof checked.  Returns
-    the extra kernel numbers and the path's launches by word count."""
-    extra = bls12_kernels(device, clock_hz, results)
+    the extra kernel numbers and the path's launches by instantiation."""
+    extra = width_kernels(curves.bls12_381_g1(device), BLS_SIZES, SEED + 9, clock_hz, results)
     R = r1cs.pairing_bls12_381.R
     rng = np.random.default_rng(SEED + 10)
 
@@ -1962,9 +2002,9 @@ def phase_groth16_bls12(device, clock_hz, results):
     with step("prove"):
         proof = g16.prove(public, private, r=r, s=s, timer=cuda_timer(prove_steps))
     launches = read_launches(GROTH16_PATH)
-    by_w = {W: launches_at(W) for W in (1, 8, 12)}
+    by_form = {tag: launches_at(tag) for tag in FORM_TAGS}
     peak = torch.cuda.max_memory_allocated()
-    w12 = by_w[12]
+    w12 = by_form["w12_full"]
     if w12["scalar_mul_xyzz"] != 1 or w12["horner"] != GROTH16_G1_MSMS \
             or launches["add_xyzz"] != 0 or w12["mont_mul"] == 0 \
             or any(w12[name] != launches[name] for name in GROTH16_PATH if name != "mont_mul"):
@@ -1997,15 +2037,230 @@ def phase_groth16_bls12(device, clock_hz, results):
         f"verified=True wrong_public_rejected=True repeat_equal=True wrong_witness_rejected=True "
         f"circuit_s={circuit_s:.3f} checks_s={checks_s:.3f} peak_mem_bytes={peak} "
         f"steps={json.dumps(steps)} prove_steps={json.dumps(prove_steps)} "
-        f"launches={json.dumps(launches)} launches_by_w={json.dumps(by_w)}")
+        f"launches={json.dumps(launches)} launches_by_form={json.dumps(by_form)}")
     results["groth16_bls12_381"] = {"steps": steps, "prove_steps": prove_steps,
                                     "peak_mem_bytes": peak}
-    return extra, by_w
+    return extra, by_form
+
+
+# phase 10, the secp256k1 path: the variable-base MSM over secp256k1 (a batch
+# verification of ECDSA or BIP-340 signatures is a sum of 2n multiples: 2^22
+# points for 2^21 signatures) on the full-width kernels (W = 8, the 64-bit
+# CIOS), each checked at the MSM's shapes first; the naive MSM of a batch of
+# 64 signatures (128 points); GLV at 2^20 scalars (2^21 points of 130
+# bits); FixedBaseMSM on G (a batch of nonce commitments k_i G) at 2^20; and
+# the 2^20 MSM over Pallas and over Vesta, which take the spare-bit kernels
+SECP_LOG_N = 22
+SECP_NAIVE_N = 128
+SECP_GLV_LOG_N = 20
+SECP_FIXED = (20, 8, 64)  # log2 of the scalars, c, results checked against host ints
+PASTA_LOG_N = 20
+SECP_RUNS = 3  # timed runs of each 2^20 MSM after the checked one
+SECP_SIZES = {
+    "k1": 1 << 22,              # K1 elements of Fq
+    "point": 1 << 20,           # K2, K3 and K4 lanes
+    "ladder": (1 << 20, 4096),  # the ladder's lanes, its twin's lanes
+    "k5": ((1024, 4096, 256),),  # K5's (R, C) at 2^22 (c = 17), lanes of its twins
+    "k6": ((256, 512),),        # K6's (R2, C2): 2^17 buckets over 512 lanes
+    "scan": 4096,               # the lane scan's C, the fold's C2
+    "fold": 512,
+    "bucket": (1 << 17, 512),   # B = 2^c and C2
+    "horner": (16, 17),         # windows and c of 256-bit scalars at c = 17
+}
+FULL_PATH = ("suffix_sweep", "reduce_sweep", "bucket_add", "lane_suffix_scan", "lane_fold",
+             "horner")
+
+
+def scalar_limbs(order: int, L: int, n: int, rng) -> np.ndarray:
+    """(L, n) uint32 16-bit limbs of n scalars uniform below ``order``: the
+    top limb masked to the order's bit length, the lanes at or above the
+    order drawn again."""
+    top = (1 << (order.bit_length() - 16 * (L - 1))) - 1
+    want = np.array([(order >> (16 * i)) & 0xFFFF for i in range(L)], dtype=np.uint32)
+    sc = np.empty((L, n), dtype=np.uint32)
+    redo = np.ones(n, dtype=bool)
+    while redo.any():
+        k = int(redo.sum())
+        sc[:, redo] = rng.integers(0, 1 << 16, size=(L, k), dtype=np.uint32)
+        sc[-1, redo] &= top
+        gt, eq = np.zeros(n, dtype=bool), np.ones(n, dtype=bool)
+        for i in range(L - 1, -1, -1):
+            gt |= eq & (sc[i] > want[i])
+            eq &= sc[i] == want[i]
+        redo = gt | eq
+    return sc
+
+
+def limb_ints(sc: np.ndarray) -> list:
+    """(L, n) 16-bit limbs -> n Python ints."""
+    return limbs.words_to_ints(sc[0::2] | (sc[1::2] << np.uint32(16)))
+
+
+def tiled_inputs(curve, n: int, seed: int):
+    """n points P_i = [ks[i % 256]] G (base_points, tiled) and n scalars
+    uniform below the group order, from seed; the host-exact MSM.  Returns
+    (points, scalar words, scalar limbs, base multipliers, expected point)."""
+    rng = np.random.default_rng(seed)
+    ks, bx, by = base_points(curve, rng)
+    sc = scalar_limbs(curve.SF.p, curve.SF.L, n, rng)
+    points = AffinePoint(tile(bx, n), tile(by, n),
+                         torch.zeros(n, dtype=torch.bool, device=curve.device))
+    G = (int(curve.gen_x), int(curve.gen_y))
+    expected = host_ec.msm_tiled(G, ks, sc, 0, curve.F.p, curve.SF.p)
+    return points, limbs.from_jax_limbs(sc, curve.device), sc, ks, expected
+
+
+def only_form(name: str, by_form: dict, tag: str, other: str) -> None:
+    """No kernel of the other instantiation launched on a path."""
+    if any(by_form[other].values()):
+        raise AssertionError(f"{name}: {other} kernels launched on a {tag} path: "
+                             f"{by_form[other]}")
+
+
+def phase_secp256k1(device, clock_hz, results):
+    """Phase 10: the full-width kernels against their twins
+    (``width_kernels`` at SECP_SIZES), then secp256k1's MSM at 2^22, the
+    naive MSM of 128 points, GLV and FixedBaseMSM at 2^20, and the MSM at
+    2^20 over Pallas and over Vesta, each through the port's entry points
+    with its launch counts set to 0 just before it and checked against
+    host ints.  Returns the extra kernel numbers and each path's launches
+    by instantiation."""
+    curve = curves.secp256k1(device)
+    F, SF = curve.F, curve.SF
+    G = (int(curve.gen_x), int(curve.gen_y))
+    marks = [time.perf_counter()]
+
+    def lap(step):  # each step's seconds, for the phase's budget
+        marks.append(time.perf_counter())
+        info.setdefault("step_s", {})[step] = round(marks[-1] - marks[-2], 1)
+
+    paths, info = {}, {}
+    extra = width_kernels(curve, SECP_SIZES, SEED + 12, clock_hz, results)
+    lap("kernels")
+
+    # (b) the MSM at 2^22: no spare-bit kernel, each sweep kernel full-width
+    n = 1 << SECP_LOG_N
+    points, scalars, sc, ks, expected = tiled_inputs(curve, n, SEED + 12)
+    rec = verified_msm(curve, f"secp256k1 msm 2^{SECP_LOG_N}",
+                       lambda: msm(curve, points, scalars), expected, MSM_PATH, MSM_RUNS)
+    full = rec["launches_by_form"]["w8_full"]
+    only_form("secp256k1 msm", rec["launches_by_form"], "w8_full", "w8_spare")
+    nwin = -(-SF.spec.bits // optimal_window_bits(SF.spec.bits, n))
+    if any(full[k] == 0 for k in FULL_PATH) or full["bucket_add"] != nwin \
+            or full["horner"] != 1 or full["add_xyzz"] or full["dbl_xyzz"]:
+        raise AssertionError(f"secp256k1 msm: full-width launches {full}: not each of "
+                             f"{FULL_PATH}, the bucket kernel {nwin} times, Horner once, "
+                             f"no K2, no K3")
+    paths[f"secp256k1_msm_2^{SECP_LOG_N}"] = rec["launches_by_form"]
+    info["msm"] = rec
+    lap("msm")
+
+    # (c) the naive path: 128 points (64 signatures), the ladder and K2's tree
+    k = SECP_NAIVE_N
+    pts = [host_ec.scalar_mul(G, int(ks[i % 256]), 0, F.p) for i in range(k)]
+    want = host_ec.msm(pts, limb_ints(sc[:, :k]), 0, F.p)
+    small = AffinePoint(*(t[..., :k].contiguous() for t in points))
+    rec = verified_msm(curve, f"secp256k1 naive msm {k}",
+                       lambda: msm(curve, small, scalars[:, :k].contiguous()), want,
+                       ("scalar_mul_xyzz", "add_xyzz", "mont_mul"), SECP_RUNS)
+    only_form("secp256k1 naive msm", rec["launches_by_form"], "w8_full", "w8_spare")
+    if rec["launches"]["scalar_mul_xyzz"] != 1 or rec["launches"]["add_xyzz"] != 7:
+        raise AssertionError(f"secp256k1 naive msm: launches {rec['launches']}: not the "
+                             f"ladder once and K2 7 times")
+    paths[f"secp256k1_naive_{k}"] = rec["launches_by_form"]
+    info["naive"] = rec
+    lap("naive")
+
+    # (d) GLV at 2^20 on the same points and scalars: the host's decomposition
+    # timed apart from the device MSM, against the plain MSM and the host
+    n2 = 1 << SECP_GLV_LOG_N
+    pts2 = AffinePoint(*(t[..., :n2].contiguous() for t in points))
+    sc2 = scalars[:, :n2].contiguous()
+    want = host_ec.msm_tiled(G, ks, sc[:, :n2], 0, F.p, SF.p)
+    ints = limb_ints(sc[:, :n2])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    allp, gsc, half_bits = glv.glv_inputs(curve, pts2, ints)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    c = optimal_window_bits(half_bits, 2 * n2)
+    rec = verified_msm(curve, f"secp256k1 glv 2^{SECP_GLV_LOG_N}",
+                       lambda: msm(curve, allp, gsc, total_bits=half_bits), want, MSM_PATH,
+                       SECP_RUNS)
+    only_form("secp256k1 glv", rec["launches_by_form"], "w8_full", "w8_spare")
+    glv_launches = rec["launches_by_form"]
+    plain = verified_msm(curve, f"secp256k1 msm 2^{SECP_GLV_LOG_N} (GLV's plain rival)",
+                         lambda: msm(curve, pts2, sc2), want, MSM_PATH, SECP_RUNS)
+    t0 = time.perf_counter()
+    if affine_ints(curve, curve.to_affine(glv.msm_glv(curve, pts2, ints))) != want:
+        raise AssertionError("secp256k1: msm_glv differs from the host point")
+    torch.cuda.synchronize()
+    info["glv"] = {**rec, "host_decompose_s": host_s, "msm_glv_s": time.perf_counter() - t0,
+                   "c": c, "half_bits": half_bits, "plain_best_s": plain["best_s"]}
+    log(f"[secp] glv 2^{SECP_GLV_LOG_N}: host decomposition and packing {host_s:.3f} s; "
+        f"device MSM of {2 * n2} points of {half_bits} bits at c = {c} best "
+        f"{rec['best_s']:.4f} s; the plain MSM (256 bits, c = "
+        f"{optimal_window_bits(SF.spec.bits, n2)}) best {plain['best_s']:.4f} s; msm_glv "
+        f"whole {info['glv']['msm_glv_s']:.3f} s")
+    paths[f"secp256k1_glv_2^{SECP_GLV_LOG_N}"] = glv_launches
+    del allp, gsc, pts2
+    lap("glv")
+
+    # (e) FixedBaseMSM on G at 2^20 scalars, c = 8: sampled results against
+    # host scalar multiples
+    log_f, cf, samples = SECP_FIXED
+    nf = 1 << log_f
+    t0 = time.perf_counter()
+    fb = fixed_msm.FixedBaseMSM(curve, G, c=cf)
+    table_s = time.perf_counter() - t0
+    scf = scalars[:, :nf].contiguous()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out = fb.run(scf)
+    torch.cuda.synchronize()
+    launches = read_launches(("add_xyzz",))
+    by_form = {tag: launches_at(tag) for tag in FORM_TAGS}
+    only_form("secp256k1 fixed-base msm", by_form, "w8_full", "w8_spare")
+    peak = torch.cuda.max_memory_allocated()
+    idx = sorted(set(np.random.default_rng(SEED + 13).choice(nf, samples - 2,
+                                                             replace=False).tolist())
+                 | {0, nf - 1})
+    got = sampled_points(curve, curve.to_affine(PointXYZZ(*(t[:, idx] for t in out))),
+                         list(range(len(idx))))
+    ints = limb_ints(sc[:, idx])
+    if got != [host_ec.scalar_mul(G, k_, 0, F.p) for k_ in ints]:
+        raise AssertionError("secp256k1 FixedBaseMSM: sampled results differ from host ints")
+    del out
+    ms = cuda_ms(lambda: fb.run(scf), SECP_RUNS)
+    info["fixed"] = {"table_s": table_s, "ms": ms, "peak_mem_bytes": peak, "c": cf,
+                     "windows": fb.nwin, "launches": launches}
+    log(f"[secp] fixed-base msm c={cf} n=2^{log_f} verified=True ({len(idx)} sampled) "
+        f"table {table_s:.3f} s, run {ms:.4f} ms, peak {peak} bytes, "
+        f"launches={json.dumps(launches)}")
+    paths[f"secp256k1_fixed_2^{log_f}"] = by_form
+    del fb, scf, points, scalars
+    lap("fixed")
+
+    # (f) the MSM at 2^20 over Pallas and over Vesta: spare-bit kernels only
+    for name, mk in (("pallas", curves.pallas), ("vesta", curves.vesta)):
+        pc = mk(device)
+        pts_, sc_, _, _, want = tiled_inputs(pc, 1 << PASTA_LOG_N, SEED + 14)
+        rec = verified_msm(pc, f"{name} msm 2^{PASTA_LOG_N}", lambda: msm(pc, pts_, sc_),
+                           want, MSM_PATH, SECP_RUNS)
+        only_form(f"{name} msm", rec["launches_by_form"], "w8_spare", "w8_full")
+        paths[f"{name}_msm_2^{PASTA_LOG_N}"] = rec["launches_by_form"]
+        info[name] = rec
+        lap(name)
+    log(f"[secp] steps' seconds {json.dumps(info['step_s'])}")
+    results["secp256k1"] = info
+    return extra, paths
+
 
 def ptxas_registers(nvcc_log: str) -> dict:
     """Registers and spill-store bytes of each kernel from ptxas's -v
     lines, by the kernel's unmangled name and its template arguments
-    (``add_xyzz_kernel<12>``, ``mont_mul_kernel<8,1>``)."""
+    (``add_xyzz_kernel<12,0>``, ``mont_mul_kernel<8,1>``)."""
     regs, name = {}, None
     for line in nvcc_log.splitlines():
         if m := re.search(r"Compiling entry function '_Z(\d+)(\w+)'", line):
@@ -2100,6 +2355,7 @@ def main() -> int:
     _, base_x, base_y = base_points(curves.bn254_g1(device), rng)
     results: dict = {}
     results12: dict = {}  # the W = 12 instantiations' numbers
+    results_full: dict = {}  # the full-width W = 8 instantiations' numbers (secp256k1)
     phase_s = {}
 
     def phase(name, fn, *args):
@@ -2115,14 +2371,16 @@ def main() -> int:
     groth16_launches = phase("groth16", phase_groth16)
     circom_launches = phase("circom", phase_circom)
     stark_launches = phase("stark", phase_stark, clock_hz, results)
-    bls_extra, bls_by_w = phase("groth16_bls12_381", phase_groth16_bls12, clock_hz, results12)
+    bls_extra, bls_by_form = phase("groth16_bls12_381", phase_groth16_bls12, clock_hz,
+                                   results12)
+    secp_extra, secp_paths = phase("secp256k1", phase_secp256k1, clock_hz, results_full)
     bls_path = f"groth16_bls12_381_2^{BLS_LOG_N}"
     log(f"[phases] seconds {json.dumps(phase_s)}, since the build started "
         f"{time.perf_counter() - t0:.1f} s")
 
-    def registers(name, W):
-        spare = int(W == 8)
-        return {k: regs.get(k) for k in (d.format(W=W, spare=spare) for d in DEVICE_KERNELS[name])}
+    def registers(name, W, spare):
+        return {k: regs.get(k) for k in (d.format(W=W, spare=int(spare))
+                                         for d in DEVICE_KERNELS[name])}
 
     # the kernel checks' extra numbers at W = 8 (K1 also at W = 1), by name
     extra8 = {"suffix_sweep": results["suffix_sweep_phases"],
@@ -2147,28 +2405,35 @@ def main() -> int:
              f"groth16_2^{GROTH16_LOG_N}": groth16_launches,
              f"circom_2^{CIRCOM_LOG_N}": circom_launches,
              f"stark_2^{STARK_LOG_N}": stark_launches}
-    # an entry for every kernel at W = 8 (K1 at W = 1 too), with every main
-    # path's launches, then one named <name>_w12 for each W = 12
-    # instantiation, checked and timed at the BLS12-381 path's shapes, with
-    # that path's launches at W = 12
+    # an entry for every kernel at W = 8 on a spare bit (K1 at W = 1 too),
+    # with every main path's launches, then one named <name>_w12 for each
+    # W = 12 instantiation, checked and timed at the BLS12-381 path's shapes,
+    # and one named <name>_w8_full for each full-width W = 8 instantiation,
+    # at the secp256k1 path's, each with its paths' launches there
     kernels = []
-    for W, res, extra in ((8, results, extra8), (12, results12, bls_extra)):
+    Form = cuda_mont.Form
+    for form, suffix, res, extra in ((Form(8, True), "", results, extra8),
+                                     (Form(12, False), "_w12", results12, bls_extra),
+                                     (Form(8, False), "_w8_full", results_full, secp_extra)):
         extra = {**lane_numbers(res), **extra}
         for name, (_, source, replaces) in KERNELS.items():
             if name not in res:
-                continue  # K1 at one word has no W = 12 instantiation
-            w = 1 if name == "mont_mul_w1" else W
-            by_path = {p: n[name] for p, n in paths.items()} if W == 8 else {}
-            by_path[bls_path] = bls_by_w[w][name]
+                continue  # K1 at one word is checked once, beside the spare-bit kernels
+            w = 1 if name == "mont_mul_w1" else form.W
+            tag = "w1_full" if w == 1 else form.tag
+            by_path = {p: n[name] for p, n in paths.items()} if suffix == "" else {}
+            by_path[bls_path] = bls_by_form[tag][name]
+            by_path.update({p: n[tag][name] for p, n in secp_paths.items()})
             r = res[name]
-            entry = {"name": name if W == 8 else f"{name}_w{W}", "route": "cuda",
+            entry = {"name": name + suffix, "route": "cuda",
                      "source": source, "replaces": replaces,
                      "launches": sum(by_path.values()), "max_abs_err": r["max_abs_err"],
                      "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None,
                      "fmul_per_s": r["fmul_per_s"], "launches_by_path": by_path,
                      "shape": r["shape"], "plain_shape": r["plain_shape"], "w": w,
-                     "registers": registers(name, w)}
+                     "form": tag[tag.index("_") + 1:],
+                     "registers": registers(name, w, tag == "w8_spare")}
             if name in ALSO_REPLACES:
                 entry["also_replaces"] = ALSO_REPLACES[name]
             entry.update(extra.get(name, {}))

@@ -3,7 +3,7 @@
 
     python3 scripts/profile_msm_torch.py [--log-n 22] [--kzg-log-n 20]
         [--groth16-log-n 18] [--circom-log-n 18] [--stark-log-n 20]
-        [--bls12-log-n 17] [--out DIR]
+        [--bls12-log-n 17] [--secp-log-n 22] [--out DIR]
 
 Builds the kernels, then traces, each after one warm-up run (a size of 0
 skips its path):
@@ -21,7 +21,9 @@ skips its path):
   uni-STARK's prove and verify (device activity only);
 - one Groth16 prove over BLS12-381 (at fixed r and s) on a square chain
   of 2^bls12_log_n constraints, after its setup (the W = 12 kernels;
-  device activity only).
+  device activity only);
+- the secp256k1 MSM (msm + to_affine) on chip_smoke.py phase 10's 2^secp_log_n
+  point set (the full-width W = 8 kernels).
 For each it prints the device time by kernel name and the device busy and
 idle shares of the traced window, and writes the Chrome trace to
 <out>/<name>_trace.json; the proves' G2 MSM launches millions of small
@@ -98,6 +100,7 @@ def main() -> int:
     ap.add_argument("--circom-log-n", type=int, default=18)
     ap.add_argument("--stark-log-n", type=int, default=20)
     ap.add_argument("--bls12-log-n", type=int, default=17)
+    ap.add_argument("--secp-log-n", type=int, default=22)
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -115,6 +118,14 @@ def main() -> int:
         points, scalars, _, _ = chip_smoke.slice_inputs(curve, 1 << args.log_n)
         profile(f"msm_2^{args.log_n}", lambda: curve.to_affine(msm(curve, points, scalars)),
                 out)
+        del points, scalars
+        torch.cuda.empty_cache()
+    if args.secp_log_n:
+        secp = curves.secp256k1(device)
+        points, scalars, *_ = chip_smoke.tiled_inputs(secp, 1 << args.secp_log_n,
+                                                      chip_smoke.SEED + 12)
+        profile(f"secp256k1_msm_2^{args.secp_log_n}",
+                lambda: secp.to_affine(msm(secp, points, scalars)), out)
         del points, scalars
         torch.cuda.empty_cache()
     if args.kzg_log_n:

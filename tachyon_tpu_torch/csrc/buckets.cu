@@ -34,21 +34,22 @@
 // turns than at K2's cap (4 blocks of 128, or 8 of 64: 128 registers, 164
 // bytes of spills) and 21% faster than at 5 blocks (96 registers, 500
 // bytes); the spills' local loads queue behind the scattered T loads
-// (PERF.md).  The cap is per W: at W = 12 (BLS12-381, 48 words a point)
+// (PERF.md).  The cap is per (W, form): on the 64-bit CIOS, at W = 8 on a
+// full-width p (secp256k1) and at W = 12 (BLS12-381, 48 words a point),
 // one block, ptxas's 255 registers a thread (untuned).
 constexpr int BUCKET_THREADS = 128;
-template <int W>
-constexpr int BUCKET_MIN_BLOCKS = W == 8 ? 3 : 1;
+template <int W, bool SPARE>
+constexpr int BUCKET_MIN_BLOCKS = W == 8 && SPARE ? 3 : 1;
 
-template <int W>
-__global__ void __launch_bounds__(BUCKET_THREADS, BUCKET_MIN_BLOCKS<W>)
+template <int W, bool SPARE>
+__global__ void __launch_bounds__(BUCKET_THREADS, BUCKET_MIN_BLOCKS<W, SPARE>)
     bucket_add_kernel(const uint32_t* __restrict__ tx, const uint32_t* __restrict__ ty,
                       const uint32_t* __restrict__ tzz, const uint32_t* __restrict__ tzzz,
                       const uint32_t* __restrict__ wx, const uint32_t* __restrict__ wy,
                       const uint32_t* __restrict__ wzz, const uint32_t* __restrict__ wzzz,
                       const int32_t* __restrict__ pos, uint32_t* ox, uint32_t* oy, uint32_t* ozz,
                       uint32_t* ozzz, int64_t R, int64_t C, int64_t B, int64_t C2,
-                      FieldConst<W> f) {
+                      FieldConst<W, SPARE> f) {
   const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= B) return;
   const int64_t n_pad = R * C;
@@ -59,7 +60,7 @@ __global__ void __launch_bounds__(BUCKET_THREADS, BUCKET_MIN_BLOCKS<W>)
     Xyzz<W> t, w;
     xyzz_load<W>(t, tx + row, ty + row, tzz + row, tzzz + row, C, c);
     xyzz_load<W>(w, wx, wy, wzz, wzzz, C, c);
-    o = xyzz_add<W>(t, w, f);
+    o = xyzz_add<W, SPARE>(t, w, f);
   } else {
     fp_zero<W>(o.x);
     fp_zero<W>(o.y);
@@ -84,11 +85,11 @@ extern "C" cudaError_t tt_bucket_add(const void* tx, const void* ty, const void*
   if (B < 1 || C2 < 1 || B % C2 != 0) return cudaErrorInvalidValue;
   const int64_t blocks = (B + BUCKET_THREADS - 1) / BUCKET_THREADS;
   cudaStream_t s = (cudaStream_t)stream;
-  TT_DISPATCH_W(W, [&] {
-    bucket_add_kernel<kW><<<(unsigned)blocks, BUCKET_THREADS, 0, s>>>(
+  TT_DISPATCH(W, consts, [&] {
+    bucket_add_kernel<kW, kS><<<(unsigned)blocks, BUCKET_THREADS, 0, s>>>(
         U32C(tx), U32C(ty), U32C(tzz), U32C(tzzz), U32C(wx), U32C(wy), U32C(wzz), U32C(wzzz),
         (const int32_t*)pos, U32(ox), U32(oy), U32(ozz), U32(ozzz), R, C, B, C2,
-        load_consts<kW>(consts));
+        load_consts<kW, kS>(consts));
     return cudaGetLastError();
   });
 }

@@ -21,48 +21,50 @@
 // block, and faster than at 3 or 5 blocks (PERF.md).  The MSM window no
 // longer launches K2 (csrc/buckets.cu and csrc/lanes.cu take its adds); the
 // naive MSM's tree reduce and Pedersen's last add do, on 1 to 32 points.
-// The cap is per W: at W = 12 (BLS12-381) a point is 48 words, so the
-// kernel asks for one block, ptxas's 255 registers a thread (untuned).
-template <int W>
-constexpr int ADD_MIN_BLOCKS = W == 8 ? 4 : 1;
+// The cap is per (W, form): the 64-bit CIOS needs more registers than the
+// chains, so at W = 8 on a full-width p (secp256k1) and at W = 12
+// (BLS12-381, 48 words a point) the kernel asks for one block, ptxas's 255
+// registers a thread (untuned first instantiations).
+template <int W, bool SPARE>
+constexpr int ADD_MIN_BLOCKS = W == 8 && SPARE ? 4 : 1;
 
-template <int W>
-__global__ void __launch_bounds__(128, ADD_MIN_BLOCKS<W>)
+template <int W, bool SPARE>
+__global__ void __launch_bounds__(128, ADD_MIN_BLOCKS<W, SPARE>)
     add_xyzz_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
                                 const uint32_t* __restrict__ pzz, const uint32_t* __restrict__ pzzz,
                                 const uint32_t* __restrict__ qx, const uint32_t* __restrict__ qy,
                                 const uint32_t* __restrict__ qzz, const uint32_t* __restrict__ qzzz,
                                 uint32_t* ox, uint32_t* oy, uint32_t* ozz, uint32_t* ozzz,
-                                int64_t n, FieldConst<W> f) {
+                                int64_t n, FieldConst<W, SPARE> f) {
   int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= n) return;
   Xyzz<W> p, q;
   xyzz_load<W>(p, px, py, pzz, pzzz, n, k);
   xyzz_load<W>(q, qx, qy, qzz, qzzz, n, k);
-  Xyzz<W> o = xyzz_add<W>(p, q, f);
+  Xyzz<W> o = xyzz_add<W, SPARE>(p, q, f);
   xyzz_store<W>(ox, oy, ozz, ozzz, n, k, o);
 }
 
-template <int W>
+template <int W, bool SPARE>
 __global__ void dbl_xyzz_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
                                 const uint32_t* __restrict__ pzz, const uint32_t* __restrict__ pzzz,
                                 uint32_t* ox, uint32_t* oy, uint32_t* ozz, uint32_t* ozzz,
-                                int64_t n, FieldConst<W> f) {
+                                int64_t n, FieldConst<W, SPARE> f) {
   int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= n) return;
   Xyzz<W> p;
   xyzz_load<W>(p, px, py, pzz, pzzz, n, k);
-  Xyzz<W> o = xyzz_dbl<W>(p, f);
+  Xyzz<W> o = xyzz_dbl<W, SPARE>(p, f);
   xyzz_store<W>(ox, oy, ozz, ozzz, n, k, o);
 }
 
-template <int W>
+template <int W, bool SPARE>
 __global__ void madd_xyzz_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
                                  const uint32_t* __restrict__ pzz,
                                  const uint32_t* __restrict__ pzzz,
                                  const uint32_t* __restrict__ qx, const uint32_t* __restrict__ qy,
                                  const int32_t* __restrict__ qinf, uint32_t* ox, uint32_t* oy,
-                                 uint32_t* ozz, uint32_t* ozzz, int64_t n, FieldConst<W> f) {
+                                 uint32_t* ozz, uint32_t* ozzz, int64_t n, FieldConst<W, SPARE> f) {
   int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= n) return;
   Xyzz<W> p;
@@ -70,7 +72,7 @@ __global__ void madd_xyzz_kernel(const uint32_t* __restrict__ px, const uint32_t
   xyzz_load<W>(p, px, py, pzz, pzzz, n, k);
   fp_load<W>(ax, qx, n, k);
   fp_load<W>(ay, qy, n, k);
-  Xyzz<W> o = xyzz_madd<W>(p, ax, ay, qinf[k] != 0, f);
+  Xyzz<W> o = xyzz_madd<W, SPARE>(p, ax, ay, qinf[k] != 0, f);
   xyzz_store<W>(ox, oy, ozz, ozzz, n, k, o);
 }
 
@@ -85,10 +87,10 @@ extern "C" cudaError_t tt_add_xyzz(const void* px, const void* py, const void* p
   const int threads = 128;
   const int64_t blocks = (n + threads - 1) / threads;
   cudaStream_t s = (cudaStream_t)stream;
-  TT_DISPATCH_W(W, [&] {
-    add_xyzz_kernel<kW><<<(unsigned)blocks, threads, 0, s>>>(
+  TT_DISPATCH(W, consts, [&] {
+    add_xyzz_kernel<kW, kS><<<(unsigned)blocks, threads, 0, s>>>(
         U32C(px), U32C(py), U32C(pzz), U32C(pzzz), U32C(qx), U32C(qy), U32C(qzz), U32C(qzzz),
-        U32(ox), U32(oy), U32(ozz), U32(ozzz), n, load_consts<kW>(consts));
+        U32(ox), U32(oy), U32(ozz), U32(ozzz), n, load_consts<kW, kS>(consts));
     return cudaGetLastError();
   });
 }
@@ -99,10 +101,10 @@ extern "C" cudaError_t tt_dbl_xyzz(const void* px, const void* py, const void* p
   const int threads = 128;
   const int64_t blocks = (n + threads - 1) / threads;
   cudaStream_t s = (cudaStream_t)stream;
-  TT_DISPATCH_W(W, [&] {
-    dbl_xyzz_kernel<kW><<<(unsigned)blocks, threads, 0, s>>>(
+  TT_DISPATCH(W, consts, [&] {
+    dbl_xyzz_kernel<kW, kS><<<(unsigned)blocks, threads, 0, s>>>(
         U32C(px), U32C(py), U32C(pzz), U32C(pzzz), U32(ox), U32(oy), U32(ozz), U32(ozzz), n,
-        load_consts<kW>(consts));
+        load_consts<kW, kS>(consts));
     return cudaGetLastError();
   });
 }
@@ -114,10 +116,10 @@ extern "C" cudaError_t tt_madd_xyzz(const void* px, const void* py, const void* 
   const int threads = 128;
   const int64_t blocks = (n + threads - 1) / threads;
   cudaStream_t s = (cudaStream_t)stream;
-  TT_DISPATCH_W(W, [&] {
-    madd_xyzz_kernel<kW><<<(unsigned)blocks, threads, 0, s>>>(
+  TT_DISPATCH(W, consts, [&] {
+    madd_xyzz_kernel<kW, kS><<<(unsigned)blocks, threads, 0, s>>>(
         U32C(px), U32C(py), U32C(pzz), U32C(pzzz), U32C(qx), U32C(qy), (const int32_t*)qinf,
-        U32(ox), U32(oy), U32(ozz), U32(ozzz), n, load_consts<kW>(consts));
+        U32(ox), U32(oy), U32(ozz), U32(ozzz), n, load_consts<kW, kS>(consts));
     return cudaGetLastError();
   });
 }

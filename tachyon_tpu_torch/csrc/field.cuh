@@ -10,19 +10,21 @@
 //
 // Additions and subtractions are PTX carry chains (add.cc / addc / sub.cc /
 // subc; 13% faster on the 2^22 MSM than the same chains in portable C++).
-// The multiply has two forms, chosen by a template bool: fp_mul<8, true>
-// for p < 2^255 (BN254: a spare bit), 32-bit PTX multiply-add chains in
-// the even/odd layout of sppark's mont_t, written for W = 8 only; and
-// fp_mul<W, false>, CIOS on 64-bit C++ products with two words above the
-// top, right for any W and any p < 2^(32 W) (secp256k1's p is a full 256
-// bits; BLS12-381's Fq, W = 12).  The default follows W: the chains at
-// W = 8, where the point kernels take only spare-bit fields, and the
-// 64-bit CIOS at every other W.
+// The multiply has two forms, and the form is part of the constants' type,
+// FieldConst<W, SPARE>, so that every function and kernel that multiplies
+// carries it as a template parameter and none can fall back on a default:
+// SPARE = true for p < 2^255 at W = 8 (BN254, Pallas, Vesta: a spare bit),
+// 32-bit PTX multiply-add chains in the even/odd layout of sppark's mont_t,
+// written for W = 8 only; SPARE = false, CIOS on 64-bit C++ products with
+// two words above the top, right for any W and any p < 2^(32 W) (secp256k1's
+// p is a full 256 bits; BLS12-381's Fq, W = 12).  The launchers pick the
+// form from p's top word (TT_DISPATCH below).
 #pragma once
 
 #include <cstdint>
 
-template <int W>
+// SPARE: the multiply's form, the even/odd chains (true) or the 64-bit CIOS.
+template <int W, bool SPARE>
 struct FieldConst {
   uint32_t p[W];    // modulus words
   uint32_t one[W];  // mont(1) = R mod p
@@ -30,32 +32,50 @@ struct FieldConst {
 };
 
 // Launchers receive the constants as a host array [p | one | n0inv].
-template <int W>
-inline FieldConst<W> load_consts(const uint32_t* host) {
-  FieldConst<W> f;
+template <int W, bool SPARE>
+inline FieldConst<W, SPARE> load_consts(const uint32_t* host) {
+  FieldConst<W, SPARE> f;
   for (int i = 0; i < W; ++i) f.p[i] = host[i];
   for (int i = 0; i < W; ++i) f.one[i] = host[W + i];
   f.n0inv = host[2 * W];
   return f;
 }
 
-// The word counts every multi-word kernel is built at: W = 8 (BN254) and
-// W = 12 (BLS12-381's Fq).  A launcher's body is a lambda on the constexpr
-// int kW: TT_DISPATCH_W(W, [&] { kernel<kW><<<...>>>(...); ... }) runs it
-// with kW equal to the runtime W and returns what it returns, and refuses
-// any other W.  ops/cuda_mont.py's POINT_W names the same set.
-#define TT_DISPATCH_W(W, ...)       \
-  switch (W) {                      \
-    case 8: {                       \
-      constexpr int kW = 8;         \
-      return __VA_ARGS__();         \
-    }                               \
-    case 12: {                      \
-      constexpr int kW = 12;        \
-      return __VA_ARGS__();         \
-    }                               \
-    default:                        \
-      return cudaErrorInvalidValue; \
+// p < 2^(32 W - 1), the condition of the even/odd chains: the top word's
+// high bit is clear.
+template <int W>
+inline bool has_spare_bit(const uint32_t* consts) {
+  return (consts[W - 1] >> 31) == 0;
+}
+
+// The (W, form) pairs every multi-word kernel is built at: (8, spare) for
+// BN254, Pallas and Vesta, (8, full) for secp256k1's full-width p, (12,
+// full) for BLS12-381's Fq (the chains are W = 8 code, so W = 12 takes the
+// 64-bit CIOS whatever p).  A launcher's body is a lambda on the constexpr
+// int kW and bool kS: TT_DISPATCH(W, consts, [&] { kernel<kW, kS><<<...>>>(...);
+// ... }) runs it with the form p's top word gives and returns what it
+// returns, and refuses any other W.  ops/cuda_mont.py's POINT_W and
+// kernel_form name the same set and rule.
+#define TT_DISPATCH(W, consts, ...)                      \
+  switch ((W) == 8 ? (has_spare_bit<8>(consts) ? 0 : 1) \
+                   : (W) == 12 ? 2 : -1) {              \
+    case 0: {                                            \
+      constexpr int kW = 8;                              \
+      constexpr bool kS = true;                          \
+      return __VA_ARGS__();                              \
+    }                                                    \
+    case 1: {                                            \
+      constexpr int kW = 8;                              \
+      constexpr bool kS = false;                         \
+      return __VA_ARGS__();                              \
+    }                                                    \
+    case 2: {                                            \
+      constexpr int kW = 12;                             \
+      constexpr bool kS = false;                         \
+      return __VA_ARGS__();                              \
+    }                                                    \
+    default:                                             \
+      return cudaErrorInvalidValue;                      \
   }
 
 // ---- PTX carry-chain primitives ---------------------------------------------
@@ -120,9 +140,9 @@ __device__ __forceinline__ void fp_select(uint32_t r[W], bool mask, const uint32
 }
 
 // Value (top:t) < 2p -> r = canonical value.  r may alias t.
-template <int W>
+template <int W, bool SPARE>
 __device__ __forceinline__ void fp_reduce_once(uint32_t r[W], const uint32_t t[W], uint32_t top,
-                                               const FieldConst<W>& f) {
+                                               const FieldConst<W, SPARE>& f) {
   uint32_t d[W];
   d[0] = sub_cc(t[0], f.p[0]);
 #pragma unroll
@@ -133,25 +153,25 @@ __device__ __forceinline__ void fp_reduce_once(uint32_t r[W], const uint32_t t[W
   for (int i = 0; i < W; ++i) r[i] = keep ? t[i] : d[i];
 }
 
-template <int W>
+template <int W, bool SPARE>
 __device__ __forceinline__ void fp_add(uint32_t r[W], const uint32_t a[W], const uint32_t b[W],
-                                       const FieldConst<W>& f) {
+                                       const FieldConst<W, SPARE>& f) {
   uint32_t s[W];
   s[0] = add_cc(a[0], b[0]);
 #pragma unroll
   for (int i = 1; i < W; ++i) s[i] = addc_cc(a[i], b[i]);
   uint32_t top = addc(0u, 0u);
-  fp_reduce_once<W>(r, s, top, f);
+  fp_reduce_once<W, SPARE>(r, s, top, f);
 }
 
-template <int W>
-__device__ __forceinline__ void fp_dbl(uint32_t r[W], const uint32_t a[W], const FieldConst<W>& f) {
-  fp_add<W>(r, a, a, f);
+template <int W, bool SPARE>
+__device__ __forceinline__ void fp_dbl(uint32_t r[W], const uint32_t a[W], const FieldConst<W, SPARE>& f) {
+  fp_add<W, SPARE>(r, a, a, f);
 }
 
-template <int W>
+template <int W, bool SPARE>
 __device__ __forceinline__ void fp_sub(uint32_t r[W], const uint32_t a[W], const uint32_t b[W],
-                                       const FieldConst<W>& f) {
+                                       const FieldConst<W, SPARE>& f) {
   uint32_t d[W];
   d[0] = sub_cc(a[0], b[0]);
 #pragma unroll
@@ -161,12 +181,6 @@ __device__ __forceinline__ void fp_sub(uint32_t r[W], const uint32_t a[W], const
 #pragma unroll
   for (int i = 1; i < W; ++i) r[i] = addc_cc(d[i], f.p[i] & mask);
   (void)addc(0u, 0u);  // close the chain; the carry out is dropped
-}
-
-// p < 2^(32 W - 1), the condition for fp_mul<W, true>: the top word's high bit is clear.
-template <int W>
-inline bool has_spare_bit(const uint32_t* consts) {
-  return (consts[W - 1] >> 31) == 0;
 }
 
 // ---- the spare-bit multiply: sppark's even/odd layout --------------------------
@@ -187,7 +201,7 @@ inline bool has_spare_bit(const uint32_t* consts) {
 // arrays in the other order next round, since the shift moves odd to word 0.
 template <int W>
 __device__ __forceinline__ void mad_n_redc(uint32_t even[W], uint32_t odd[W], const uint32_t a[W],
-                                           uint32_t bi, const FieldConst<W>& f, bool first) {
+                                           uint32_t bi, const FieldConst<W, true>& f, bool first) {
   static_assert(W == 8, "the chains below are written for W = 8");
   if (first) {
 #pragma unroll
@@ -255,17 +269,17 @@ __device__ __forceinline__ void mad_n_redc(uint32_t even[W], uint32_t odd[W], co
 
 // CIOS Montgomery product r = a * b * R^-1 mod p, canonical.  r may alias a or b.
 //
-// SPARE (p < 2^(32 W - 1)): the even/odd chains above; the rounds leave
-// t < 2p in W words after the merge.  Otherwise each round adds a * b[i],
-// then m * p with m = t[0] * n0inv so that the low word cancels, and shifts
-// t down one word; t < 2p after every round, so the two words above the
-// top (t[W], t[W+1]) never overflow.  Those products are plain 64-bit C++
-// (IMAD.WIDE with a separate add for each carry).  SPARE defaults to
-// W == 8: the W = 12 kernels (BLS12-381's Fq) run the 64-bit CIOS, which
-// needs no spare bit.
-template <int W, bool SPARE = (W == 8)>
+// SPARE (p < 2^(32 W - 1), W = 8): the even/odd chains above; the rounds
+// leave t < 2p in W words after the merge.  Otherwise each round adds
+// a * b[i], then m * p with m = t[0] * n0inv so that the low word cancels,
+// and shifts t down one word; t < 2p after every round, so the two words
+// above the top (t[W], t[W+1]) never overflow.  Those products are plain
+// 64-bit C++ (IMAD.WIDE with a separate add for each carry).  The form is
+// f's type, never a default: secp256k1's full-width p at W = 8 and every p
+// at W = 12 come here as FieldConst<W, false>.
+template <int W, bool SPARE>
 __device__ __forceinline__ void fp_mul(uint32_t r[W], const uint32_t a[W], const uint32_t b[W],
-                                       const FieldConst<W>& f) {
+                                       const FieldConst<W, SPARE>& f) {
   if constexpr (SPARE) {
     uint32_t even[W], odd[W];
 #pragma unroll
@@ -287,7 +301,7 @@ __device__ __forceinline__ void fp_mul(uint32_t r[W], const uint32_t a[W], const
           "+r"(even[6]), "+r"(even[7])
         : "r"(odd[1]), "r"(odd[2]), "r"(odd[3]), "r"(odd[4]), "r"(odd[5]), "r"(odd[6]),
           "r"(odd[7]));
-    fp_reduce_once<W>(r, even, 0u, f);
+    fp_reduce_once<W, SPARE>(r, even, 0u, f);
   } else {
     uint32_t t[W + 2];
 #pragma unroll
@@ -316,13 +330,13 @@ __device__ __forceinline__ void fp_mul(uint32_t r[W], const uint32_t a[W], const
       t[W - 1] = (uint32_t)s;
       t[W] = t[W + 1] + (uint32_t)(s >> 32);
     }
-    fp_reduce_once<W>(r, t, t[W], f);
+    fp_reduce_once<W, SPARE>(r, t, t[W], f);
   }
 }
 
-template <int W>
-__device__ __forceinline__ void fp_sq(uint32_t r[W], const uint32_t a[W], const FieldConst<W>& f) {
-  fp_mul<W>(r, a, a, f);
+template <int W, bool SPARE>
+__device__ __forceinline__ void fp_sq(uint32_t r[W], const uint32_t a[W], const FieldConst<W, SPARE>& f) {
+  fp_mul<W, SPARE>(r, a, a, f);
 }
 
 // ---- strided loads/stores: element k of a (W, n) word-major array --------------

@@ -17,22 +17,22 @@
 #include "xyzz.cuh"
 
 // wins: 4 x (W, nwin) window sums, column k = window k; out: 4 x (W,).
-template <int W>
+template <int W, bool SPARE>
 __global__ void __launch_bounds__(1)
     horner_xyzz_kernel(const uint32_t* __restrict__ wx, const uint32_t* __restrict__ wy,
                        const uint32_t* __restrict__ wzz, const uint32_t* __restrict__ wzzz,
                        uint32_t* ox, uint32_t* oy, uint32_t* ozz, uint32_t* ozzz, int64_t nwin,
-                       int c, FieldConst<W> f) {
+                       int c, FieldConst<W, SPARE> f) {
   Xyzz<W> acc;
   fp_zero<W>(acc.x);
   fp_zero<W>(acc.y);
   fp_zero<W>(acc.zz);
   fp_zero<W>(acc.zzz);
   for (int64_t k = nwin - 1; k >= 0; --k) {
-    for (int i = 0; i < c; ++i) acc = xyzz_dbl<W>(acc, f);
+    for (int i = 0; i < c; ++i) acc = xyzz_dbl<W, SPARE>(acc, f);
     Xyzz<W> w;
     xyzz_load<W>(w, wx, wy, wzz, wzzz, nwin, k);
-    acc = xyzz_add<W>(acc, w, f);
+    acc = xyzz_add<W, SPARE>(acc, w, f);
   }
   xyzz_store<W>(ox, oy, ozz, ozzz, 1, 0, acc);
 }
@@ -46,10 +46,10 @@ extern "C" cudaError_t tt_horner_xyzz(const void* wx, const void* wy, const void
                                       void* stream) {
   if (nwin < 1 || c < 0) return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  TT_DISPATCH_W(W, [&] {
-    horner_xyzz_kernel<kW><<<1, 1, 0, s>>>(U32C(wx), U32C(wy), U32C(wzz), U32C(wzzz), U32(ox),
+  TT_DISPATCH(W, consts, [&] {
+    horner_xyzz_kernel<kW, kS><<<1, 1, 0, s>>>(U32C(wx), U32C(wy), U32C(wzz), U32C(wzzz), U32(ox),
                                             U32(oy), U32(ozz), U32(ozzz), nwin, c,
-                                            load_consts<kW>(consts));
+                                            load_consts<kW, kS>(consts));
     return cudaGetLastError();
   });
 }

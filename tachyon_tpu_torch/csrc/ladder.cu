@@ -28,12 +28,12 @@
 
 constexpr int LADDER_THREADS = 128;
 
-template <int W>
+template <int W, bool SPARE>
 __global__ void __launch_bounds__(LADDER_THREADS)
     scalar_mul_xyzz_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
                            const int32_t* __restrict__ pinf, const uint32_t* __restrict__ sc,
                            uint32_t* ox, uint32_t* oy, uint32_t* ozz, uint32_t* ozzz, int64_t n,
-                           int Ws, FieldConst<W> f) {
+                           int Ws, FieldConst<W, SPARE> f) {
   const int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= n) return;
   uint32_t ax[W], ay[W];
@@ -50,8 +50,8 @@ __global__ void __launch_bounds__(LADDER_THREADS)
     const uint32_t word = sc[w * n + k];
 #pragma unroll 1
     for (int j = 31; j >= 0; --j) {
-      acc = xyzz_dbl<W>(acc, f);
-      if ((word >> j) & 1u) acc = xyzz_madd<W>(acc, ax, ay, p_inf, f);
+      acc = xyzz_dbl<W, SPARE>(acc, f);
+      if ((word >> j) & 1u) acc = xyzz_madd<W, SPARE>(acc, ax, ay, p_inf, f);
     }
   }
   xyzz_store<W>(ox, oy, ozz, ozzz, n, k, acc);
@@ -63,11 +63,11 @@ extern "C" cudaError_t tt_scalar_mul_xyzz(const void* px, const void* py, const 
                                           int W, void* stream) {
   const int64_t blocks = (n + LADDER_THREADS - 1) / LADDER_THREADS;
   cudaStream_t s = (cudaStream_t)stream;
-  TT_DISPATCH_W(W, [&] {
-    scalar_mul_xyzz_kernel<kW><<<(unsigned)blocks, LADDER_THREADS, 0, s>>>(
+  TT_DISPATCH(W, consts, [&] {
+    scalar_mul_xyzz_kernel<kW, kS><<<(unsigned)blocks, LADDER_THREADS, 0, s>>>(
         (const uint32_t*)px, (const uint32_t*)py, (const int32_t*)pinf, (const uint32_t*)scalars,
         (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)ozz, (uint32_t*)ozzz, n, Ws,
-        load_consts<kW>(consts));
+        load_consts<kW, kS>(consts));
     return cudaGetLastError();
   });
 }

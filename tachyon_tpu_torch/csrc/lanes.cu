@@ -77,24 +77,24 @@ __device__ __forceinline__ bool bias_load(Xyzz<W>& nd, const uint32_t* bx, const
 }
 
 // Lane k of a 4 x (W, C) input, plus nd when biased (the fold's loads).
-template <int W>
+template <int W, bool SPARE>
 __device__ __forceinline__ void lane_in(Xyzz<W>& a, const uint32_t* x, const uint32_t* y,
                                         const uint32_t* zz, const uint32_t* zzz, int64_t C,
                                         int64_t k, bool biased, const Xyzz<W>& nd,
-                                        const FieldConst<W>& f) {
+                                        const FieldConst<W, SPARE>& f) {
   xyzz_load<W>(a, x, y, zz, zzz, C, k);
-  if (biased) a = xyzz_add<W>(a, nd, f);
+  if (biased) a = xyzz_add<W, SPARE>(a, nd, f);
 }
 
 // u and out: 4 x (W, C); buf: (2, 4, W, C) scratch; b*: the bias or null.
 // With a bias, u is redirected into buf, so it is not __restrict__.
-template <int W>
+template <int W, bool SPARE>
 __global__ void __launch_bounds__(SCAN_THREADS)
     lane_suffix_scan_kernel(const uint32_t* ux, const uint32_t* uy, const uint32_t* uzz,
                             const uint32_t* uzzz, const uint32_t* bx, const uint32_t* by,
                             const uint32_t* bzz, const uint32_t* bzzz, uint32_t* buf,
                             uint32_t* ox, uint32_t* oy, uint32_t* ozz, uint32_t* ozzz,
-                            int64_t C, int steps, FieldConst<W> f) {
+                            int64_t C, int steps, FieldConst<W, SPARE> f) {
   const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = c < C;
   Xyzz<W> a, nd;
@@ -104,7 +104,7 @@ __global__ void __launch_bounds__(SCAN_THREADS)
     uint32_t* ub = buf + 4 * W * C;
     if (live) {
       xyzz_load<W>(a, ux, uy, uzz, uzzz, C, c);
-      lanes_store<W>(ub, C, c, xyzz_add<W>(a, nd, f));
+      lanes_store<W>(ub, C, c, xyzz_add<W, SPARE>(a, nd, f));
     }
     cg::this_grid().sync();
     ux = ub;
@@ -132,7 +132,7 @@ __global__ void __launch_bounds__(SCAN_THREADS)
       } else {
         lanes_load<W>(b, buf + ((i - 1) & 1) * 4 * W * C, C, k);
       }
-      a = xyzz_add<W>(a, b, f);
+      a = xyzz_add<W, SPARE>(a, b, f);
     }
     if (i + 1 < steps) {
       if (live) lanes_store<W>(buf + (i & 1) * 4 * W * C, C, c, a);
@@ -140,7 +140,7 @@ __global__ void __launch_bounds__(SCAN_THREADS)
     }
   }
   if (live) {
-    if (biased) a = xyzz_add<W>(a, nd, f);
+    if (biased) a = xyzz_add<W, SPARE>(a, nd, f);
     xyzz_store<W>(ox, oy, ozz, ozzz, C, c, a);
   }
 }
@@ -148,28 +148,28 @@ __global__ void __launch_bounds__(SCAN_THREADS)
 // p: 4 x (W, C) with C a power of two, 1 <= C <= 2 FOLD_THREADS; one block
 // of max(C / 2, 1) threads; b*: the bias or null; out: 4 x W words, word i
 // at o[i * ostride].
-template <int W>
+template <int W, bool SPARE>
 __global__ void __launch_bounds__(FOLD_THREADS)
     lane_fold_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
                      const uint32_t* __restrict__ pzz, const uint32_t* __restrict__ pzzz,
                      const uint32_t* bx, const uint32_t* by, const uint32_t* bzz,
                      const uint32_t* bzzz, uint32_t* ox, uint32_t* oy, uint32_t* ozz,
-                     uint32_t* ozzz, int64_t ostride, int64_t C, FieldConst<W> f) {
+                     uint32_t* ozzz, int64_t ostride, int64_t C, FieldConst<W, SPARE> f) {
   __shared__ uint32_t sh[4 * W * FOLD_THREADS];
   const int t = threadIdx.x, half = (int)(C / 2);
   Xyzz<W> a, b, nd;
   const bool biased = bias_load<W>(nd, bx, by, bzz, bzzz);
-  lane_in<W>(a, px, py, pzz, pzzz, C, t, biased, nd, f);
+  lane_in<W, SPARE>(a, px, py, pzz, pzzz, C, t, biased, nd, f);
   if (half > 0) {
-    lane_in<W>(b, px, py, pzz, pzzz, C, t + half, biased, nd, f);
-    a = xyzz_add<W>(a, b, f);
+    lane_in<W, SPARE>(b, px, py, pzz, pzzz, C, t + half, biased, nd, f);
+    a = xyzz_add<W, SPARE>(a, b, f);
   }
   for (int h = half / 2; h >= 1; h /= 2) {
     if (t >= h && t < 2 * h) lanes_store<W>(sh, FOLD_THREADS, t, a);
     __syncthreads();
     if (t < h) {
       lanes_load<W>(b, sh, FOLD_THREADS, t + h);
-      a = xyzz_add<W>(a, b, f);
+      a = xyzz_add<W, SPARE>(a, b, f);
     }
     __syncthreads();
   }
@@ -200,11 +200,11 @@ extern "C" cudaError_t tt_lane_suffix_scan(const void* ux, const void* uy, const
   const uint32_t *ux_ = U32C(ux), *uy_ = U32C(uy), *uzz_ = U32C(uzz), *uzzz_ = U32C(uzzz);
   const uint32_t *bx_ = U32C(bx), *by_ = U32C(by), *bzz_ = U32C(bzz), *bzzz_ = U32C(bzzz);
   uint32_t *buf_ = U32(buf), *ox_ = U32(ox), *oy_ = U32(oy), *ozz_ = U32(ozz), *ozzz_ = U32(ozzz);
-  TT_DISPATCH_W(W, [&] {
-    FieldConst<kW> f = load_consts<kW>(consts);
+  TT_DISPATCH(W, consts, [&] {
+    FieldConst<kW, kS> f = load_consts<kW, kS>(consts);
     void* args[] = {&ux_, &uy_, &uzz_, &uzzz_, &bx_, &by_, &bzz_, &bzzz_, &buf_,
                     &ox_, &oy_,  &ozz_, &ozzz_, &C,     &steps, &f};
-    cudaError_t err = cudaLaunchCooperativeKernel((const void*)lane_suffix_scan_kernel<kW>,
+    cudaError_t err = cudaLaunchCooperativeKernel((const void*)lane_suffix_scan_kernel<kW, kS>,
                                                   dim3(blocks), dim3(SCAN_THREADS), args, 0, s);
     return err != cudaSuccess ? err : cudaGetLastError();
   });
@@ -217,10 +217,10 @@ extern "C" cudaError_t tt_lane_fold(const void* px, const void* py, const void* 
                                     const uint32_t* consts, int W, void* stream) {
   if (C < 1 || C > 2 * FOLD_THREADS || (C & (C - 1)) != 0) return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  TT_DISPATCH_W(W, [&] {
-    lane_fold_kernel<kW><<<1, (unsigned)(C > 1 ? C / 2 : 1), 0, s>>>(
+  TT_DISPATCH(W, consts, [&] {
+    lane_fold_kernel<kW, kS><<<1, (unsigned)(C > 1 ? C / 2 : 1), 0, s>>>(
         U32C(px), U32C(py), U32C(pzz), U32C(pzzz), U32C(bx), U32C(by), U32C(bzz), U32C(bzzz),
-        U32(ox), U32(oy), U32(ozz), U32(ozzz), ostride, C, load_consts<kW>(consts));
+        U32(ox), U32(oy), U32(ozz), U32(ozzz), ostride, C, load_consts<kW, kS>(consts));
     return cudaGetLastError();
   });
 }

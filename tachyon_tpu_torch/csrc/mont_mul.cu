@@ -4,10 +4,11 @@
 //
 // Bound: bytes at large n (96 bytes moved per element against 136 word
 // products at W = 8; 144 against 300 at W = 12), the launch at small n.
-// At W = 8 the launcher picks the multiply's form from p's top word
-// (field.cuh): the even/odd PTX chains when p has a spare bit (BN254's Fq
-// and Fr), the 64-bit CIOS for a full-width p (secp256k1).  At W = 12
-// (BLS12-381's Fq) it is the 64-bit CIOS.
+// The launcher picks the multiply's form from p's top word, as every
+// launcher does (TT_DISPATCH, field.cuh): the even/odd PTX chains at W = 8
+// when p has a spare bit (BN254's, Pallas's and Vesta's Fq and Fr), the
+// 64-bit CIOS for a full-width p (secp256k1's Fq and Fr) and at W = 12
+// (BLS12-381's Fq).
 //
 // tt_mont_mul1 is K1 at one word (W = 1: BabyBear, KoalaBear, Mersenne-31,
 // whose R = 2^32 is the JAX package's R at L = 2): t = a b in 64 bits,
@@ -24,7 +25,7 @@
 
 template <int W, bool SPARE>
 __global__ void mont_mul_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
-                                uint32_t* __restrict__ out, int64_t n, FieldConst<W> f) {
+                                uint32_t* __restrict__ out, int64_t n, FieldConst<W, SPARE> f) {
   int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= n) return;
   uint32_t x[W], y[W];
@@ -79,16 +80,8 @@ extern "C" cudaError_t tt_mont_mul(const void* a, const void* b, void* out, int6
   cudaStream_t s = (cudaStream_t)stream;
   const uint32_t *a_ = (const uint32_t*)a, *b_ = (const uint32_t*)b;
   uint32_t* out_ = (uint32_t*)out;
-  TT_DISPATCH_W(W, [&] {
-    // the PTX chains need p's spare bit: a full-width p at W = 8 (secp256k1)
-    // and every p at W = 12 take the 64-bit CIOS (field.cuh)
-    if (kW == 8 && has_spare_bit<kW>(consts)) {
-      mont_mul_kernel<kW, kW == 8><<<blocks, threads, 0, s>>>(a_, b_, out_, n,
-                                                             load_consts<kW>(consts));
-    } else {
-      mont_mul_kernel<kW, false><<<blocks, threads, 0, s>>>(a_, b_, out_, n,
-                                                           load_consts<kW>(consts));
-    }
+  TT_DISPATCH(W, consts, [&] {
+    mont_mul_kernel<kW, kS><<<blocks, threads, 0, s>>>(a_, b_, out_, n, load_consts<kW, kS>(consts));
     return cudaGetLastError();
   });
 }

@@ -39,8 +39,9 @@
 // for SWEEP_MIN_BLOCKS = 5 blocks per SM, which caps them at 96 registers
 // with 72-88 bytes of spills; they ran 11% faster at (1024, 8, 4096) than
 // with the 148-154 registers ptxas takes uncapped (PERF.md).  The cap is
-// per W: at W = 12 (BLS12-381, 48 words a point) they ask for one block,
-// ptxas's 255 registers a thread (untuned).
+// per (W, form): on the 64-bit CIOS, at W = 8 on a full-width p
+// (secp256k1) and at W = 12 (BLS12-381, 48 words a point), they ask for one
+// block, ptxas's 255 registers a thread (untuned).
 //
 // K6 (the reduce sweep, tachyon_tpu/ops/pallas_msm.py _reduce_sweep_call,
 // body _add_blinded; JAX twin reduce_sweep_jnp) sums a lane's R XYZZ rows
@@ -62,8 +63,8 @@
 #include "xyzz.cuh"
 
 constexpr int SWEEP_THREADS = 128;   // phases 1 and 3
-template <int W>
-constexpr int SWEEP_MIN_BLOCKS = W == 8 ? 5 : 1;  // per SM, asked of ptxas for phases 1, 3
+template <int W, bool SPARE>
+constexpr int SWEEP_MIN_BLOCKS = W == 8 && SPARE ? 5 : 1;  // per SM, asked of ptxas for phases 1, 3
 constexpr int CARRY_THREADS = 32;   // phase 2: one warp per block spreads C lanes over SMs
 constexpr int REDUCE_THREADS = 128;  // K6 phase 1
 constexpr int COMBINE_THREADS = 64;  // K6 phase 2: lanes x F threads per block
@@ -103,13 +104,13 @@ __device__ __forceinline__ void row_load(uint32_t qx[W], uint32_t qy[W], bool& q
 // Blinded madds of rows hi - 1 down to lo of lane c into acc; with EMIT,
 // every row's accumulator is stored.  The next row is loaded before the
 // current row's add (the last step reloads row lo, which stays in cache).
-template <int W, bool EMIT>
+template <int W, bool SPARE, bool EMIT>
 __device__ __forceinline__ void sweep_rows(Xyzz<W>& acc, const uint32_t* __restrict__ x,
                                            const uint32_t* __restrict__ y,
                                            const uint32_t* __restrict__ inf, uint32_t* sx,
                                            uint32_t* sy, uint32_t* szz, uint32_t* szzz,
                                            int64_t lo, int64_t hi, int64_t C, int64_t c,
-                                           const FieldConst<W>& f) {
+                                           const FieldConst<W, SPARE>& f) {
   if (hi <= lo) return;
   uint32_t qx[W], qy[W];
   bool qinf;
@@ -118,7 +119,7 @@ __device__ __forceinline__ void sweep_rows(Xyzz<W>& acc, const uint32_t* __restr
     uint32_t nx[W], ny[W];
     bool ninf;
     row_load<W>(nx, ny, ninf, x, y, inf, r > lo ? r - 1 : r, C, c);
-    xyzz_madd_blinded<W>(acc, qx, qy, qinf, f);
+    xyzz_madd_blinded<W, SPARE>(acc, qx, qy, qinf, f);
     if (EMIT) {
       const int64_t row = r * W * C;
       xyzz_store<W>(sx + row, sy + row, szz + row, szzz + row, C, c, acc);
@@ -130,30 +131,30 @@ __device__ __forceinline__ void sweep_rows(Xyzz<W>& acc, const uint32_t* __restr
 }
 
 // Phase 1: T[s] = D + sum of segment s, for s = 1 .. S - 1, into slot s - 1.
-template <int W>
-__global__ void __launch_bounds__(SWEEP_THREADS, SWEEP_MIN_BLOCKS<W>)
+template <int W, bool SPARE>
+__global__ void __launch_bounds__(SWEEP_THREADS, SWEEP_MIN_BLOCKS<W, SPARE>)
     suffix_totals_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
                          const uint32_t* __restrict__ inf, const uint32_t* __restrict__ dx,
                          const uint32_t* __restrict__ dy, const uint32_t* __restrict__ dzz,
                          const uint32_t* __restrict__ dzzz, uint32_t* tot, int64_t R, int64_t C,
-                         int64_t L, int64_t S, FieldConst<W> f) {
+                         int64_t L, int64_t S, FieldConst<W, SPARE> f) {
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= (S - 1) * C) return;
   const int64_t s = t / C + 1, c = t % C;
   Xyzz<W> acc;
   xyzz_load<W>(acc, dx, dy, dzz, dzzz, C, c);
   const int64_t lo = s * L, hi = lo + L < R ? lo + L : R;
-  sweep_rows<W, false>(acc, x, y, inf, nullptr, nullptr, nullptr, nullptr, lo, hi, C, c, f);
+  sweep_rows<W, SPARE, false>(acc, x, y, inf, nullptr, nullptr, nullptr, nullptr, lo, hi, C, c, f);
   slot_store<W>(tot, s - 1, C, c, acc);
 }
 
 // Phase 2: Cin[s] for s = S - 2 .. 0 into slot s (Cin[S - 1] = D is not stored).
-template <int W>
+template <int W, bool SPARE>
 __global__ void __launch_bounds__(CARRY_THREADS)
     suffix_carries_kernel(const uint32_t* __restrict__ tot, const uint32_t* __restrict__ dx,
                           const uint32_t* __restrict__ dy, const uint32_t* __restrict__ dzz,
                           const uint32_t* __restrict__ dzzz, uint32_t* cin, int64_t C, int64_t S,
-                          FieldConst<W> f) {
+                          FieldConst<W, SPARE> f) {
   const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= C) return;
   Xyzz<W> acc, nd;
@@ -161,25 +162,25 @@ __global__ void __launch_bounds__(CARRY_THREADS)
   nd = acc;
   uint32_t zero[W];
   fp_zero<W>(zero);
-  fp_sub<W>(nd.y, zero, acc.y, f);  // -D
+  fp_sub<W, SPARE>(nd.y, zero, acc.y, f);  // -D
   for (int64_t s = S - 2; s >= 0; --s) {
     Xyzz<W> t;
     slot_load<W>(t, tot, s, C, c);  // T[s + 1]
-    acc = xyzz_add<W>(acc, t, f);
-    acc = xyzz_add<W>(acc, nd, f);
+    acc = xyzz_add<W, SPARE>(acc, t, f);
+    acc = xyzz_add<W, SPARE>(acc, nd, f);
     slot_store<W>(cin, s, C, c, acc);
   }
 }
 
 // Phase 3: every row of segment s from Cin[s] (D for the top segment).
-template <int W>
-__global__ void __launch_bounds__(SWEEP_THREADS, SWEEP_MIN_BLOCKS<W>)
+template <int W, bool SPARE>
+__global__ void __launch_bounds__(SWEEP_THREADS, SWEEP_MIN_BLOCKS<W, SPARE>)
     suffix_emit_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
                        const uint32_t* __restrict__ inf, const uint32_t* __restrict__ dx,
                        const uint32_t* __restrict__ dy, const uint32_t* __restrict__ dzz,
                        const uint32_t* __restrict__ dzzz, const uint32_t* __restrict__ cin,
                        uint32_t* sx, uint32_t* sy, uint32_t* szz, uint32_t* szzz, int64_t R,
-                       int64_t C, int64_t L, int64_t S, FieldConst<W> f) {
+                       int64_t C, int64_t L, int64_t S, FieldConst<W, SPARE> f) {
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= S * C) return;
   const int64_t s = t / C, c = t % C;
@@ -190,21 +191,21 @@ __global__ void __launch_bounds__(SWEEP_THREADS, SWEEP_MIN_BLOCKS<W>)
     slot_load<W>(acc, cin, s, C, c);
   }
   const int64_t lo = s * L, hi = lo + L < R ? lo + L : R;
-  sweep_rows<W, true>(acc, x, y, inf, sx, sy, szz, szzz, lo, hi, C, c, f);
+  sweep_rows<W, SPARE, true>(acc, x, y, inf, sx, sy, szz, szzz, lo, hi, C, c, f);
 }
 
 // K6, phase 1: thread (s, c), c fastest, T[s] = D + sum of rows
 // [s L, min((s + 1) L, R)) of lane c with the blinded add (infinity rows
 // skipped), into slot s of tot.  With S = 1, tot is the output.  The next
 // row is loaded before the current row's add.
-template <int W>
+template <int W, bool SPARE>
 __global__ void __launch_bounds__(REDUCE_THREADS)
     reduce_partials_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
                            const uint32_t* __restrict__ zz, const uint32_t* __restrict__ zzz,
                            const uint32_t* __restrict__ dx, const uint32_t* __restrict__ dy,
                            const uint32_t* __restrict__ dzz, const uint32_t* __restrict__ dzzz,
                            uint32_t* tot, int64_t R, int64_t C, int64_t L, int64_t S,
-                           FieldConst<W> f) {
+                           FieldConst<W, SPARE> f) {
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= S * C) return;
   const int64_t s = t / C, c = t % C;
@@ -216,7 +217,7 @@ __global__ void __launch_bounds__(REDUCE_THREADS)
     const int64_t row = (r + 1 < hi ? r + 1 : r) * W * C;
     Xyzz<W> nq;
     xyzz_load<W>(nq, x + row, y + row, zz + row, zzz + row, C, c);
-    xyzz_add_blinded<W>(acc, q, f);
+    xyzz_add_blinded<W, SPARE>(acc, q, f);
     q = nq;
   }
   slot_store<W>(tot, s, C, c, acc);
@@ -232,12 +233,12 @@ __global__ void __launch_bounds__(REDUCE_THREADS)
 // serial chain of 2 (S - 1) adds; G = 2 a tree of 2 ceil(log2 S) adds.
 // A block holds lpb lanes x F threads, lane fastest; the shared memory is
 // one point per thread, word-major.
-template <int W>
+template <int W, bool SPARE>
 __global__ void __launch_bounds__(COMBINE_THREADS)
     reduce_combine_kernel(const uint32_t* __restrict__ tot, const uint32_t* __restrict__ dx,
                           const uint32_t* __restrict__ dy, const uint32_t* __restrict__ dzz,
                           const uint32_t* __restrict__ dzzz, uint32_t* out, int64_t C, int64_t S,
-                          int64_t G, int F, FieldConst<W> f) {
+                          int64_t G, int F, FieldConst<W, SPARE> f) {
   extern __shared__ uint32_t sh[];  // (4, W, blockDim.x)
   const int n = blockDim.x, lpb = n / F;
   const int g = threadIdx.x / lpb;
@@ -251,7 +252,7 @@ __global__ void __launch_bounds__(COMBINE_THREADS)
     xyzz_load<W>(nd, dx, dy, dzz, dzzz, C, c);
     uint32_t zero[W];
     fp_zero<W>(zero);
-    fp_sub<W>(nd.y, zero, nd.y, f);  // -D
+    fp_sub<W, SPARE>(nd.y, zero, nd.y, f);  // -D
     slot_load<W>(acc, tot, j0, C, c);
   }
   // Steps 1 .. G - 1 walk the chain, then one step per tree level; a
@@ -277,8 +278,8 @@ __global__ void __launch_bounds__(COMBINE_THREADS)
       __syncthreads();
     }
     if (take) {
-      acc = xyzz_add<W>(acc, t, f);
-      acc = xyzz_add<W>(acc, nd, f);
+      acc = xyzz_add<W, SPARE>(acc, t, f);
+      acc = xyzz_add<W, SPARE>(acc, nd, f);
     }
   }
   if (live && g == 0) xyzz_store<W>(out, out + W * C, out + 2 * W * C, out + 3 * W * C, C, c, acc);
@@ -301,10 +302,10 @@ extern "C" cudaError_t tt_suffix_totals(const void* x, const void* y, const void
                                         void* stream) {
   if (S < 2) return cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  TT_DISPATCH_W(W, [&] {
-    suffix_totals_kernel<kW><<<blocks_for((S - 1) * C, SWEEP_THREADS), SWEEP_THREADS, 0, s>>>(
+  TT_DISPATCH(W, consts, [&] {
+    suffix_totals_kernel<kW, kS><<<blocks_for((S - 1) * C, SWEEP_THREADS), SWEEP_THREADS, 0, s>>>(
         U32C(x), U32C(y), U32C(inf), U32C(dx), U32C(dy), U32C(dzz), U32C(dzzz), U32(tot), R, C,
-        L, S, load_consts<kW>(consts));
+        L, S, load_consts<kW, kS>(consts));
     return cudaGetLastError();
   });
 }
@@ -314,10 +315,10 @@ extern "C" cudaError_t tt_suffix_carries(const void* tot, const void* dx, const 
                                          int64_t S, const uint32_t* consts, int W, void* stream) {
   if (S < 2) return cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  TT_DISPATCH_W(W, [&] {
-    suffix_carries_kernel<kW><<<blocks_for(C, CARRY_THREADS), CARRY_THREADS, 0, s>>>(
+  TT_DISPATCH(W, consts, [&] {
+    suffix_carries_kernel<kW, kS><<<blocks_for(C, CARRY_THREADS), CARRY_THREADS, 0, s>>>(
         U32C(tot), U32C(dx), U32C(dy), U32C(dzz), U32C(dzzz), U32(cin), C, S,
-        load_consts<kW>(consts));
+        load_consts<kW, kS>(consts));
     return cudaGetLastError();
   });
 }
@@ -328,10 +329,10 @@ extern "C" cudaError_t tt_suffix_emit(const void* x, const void* y, const void* 
                                       void* szz, void* szzz, int64_t R, int64_t C, int64_t L,
                                       int64_t S, const uint32_t* consts, int W, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  TT_DISPATCH_W(W, [&] {
-    suffix_emit_kernel<kW><<<blocks_for(S * C, SWEEP_THREADS), SWEEP_THREADS, 0, s>>>(
+  TT_DISPATCH(W, consts, [&] {
+    suffix_emit_kernel<kW, kS><<<blocks_for(S * C, SWEEP_THREADS), SWEEP_THREADS, 0, s>>>(
         U32C(x), U32C(y), U32C(inf), U32C(dx), U32C(dy), U32C(dzz), U32C(dzzz), U32C(cin),
-        U32(sx), U32(sy), U32(szz), U32(szzz), R, C, L, S, load_consts<kW>(consts));
+        U32(sx), U32(sy), U32(szz), U32(szzz), R, C, L, S, load_consts<kW, kS>(consts));
     return cudaGetLastError();
   });
 }
@@ -346,10 +347,10 @@ extern "C" cudaError_t tt_reduce_partials(const void* x, const void* y, const vo
                                           int64_t C, int64_t L, int64_t S, const uint32_t* consts,
                                           int W, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  TT_DISPATCH_W(W, [&] {
-    reduce_partials_kernel<kW><<<blocks_for(S * C, REDUCE_THREADS), REDUCE_THREADS, 0, s>>>(
+  TT_DISPATCH(W, consts, [&] {
+    reduce_partials_kernel<kW, kS><<<blocks_for(S * C, REDUCE_THREADS), REDUCE_THREADS, 0, s>>>(
         U32C(x), U32C(y), U32C(zz), U32C(zzz), U32C(dx), U32C(dy), U32C(dzz), U32C(dzzz),
-        U32(tot), R, C, L, S, load_consts<kW>(consts));
+        U32(tot), R, C, L, S, load_consts<kW, kS>(consts));
     return cudaGetLastError();
   });
 }
@@ -366,10 +367,10 @@ extern "C" cudaError_t tt_reduce_combine(const void* tot, const void* dx, const 
   if (F < 1 || F > COMBINE_THREADS || (F & (F - 1)) != 0) return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int lpb = COMBINE_THREADS / F, n = lpb * F;
-  TT_DISPATCH_W(W, [&] {
-    reduce_combine_kernel<kW><<<blocks_for(C, lpb), n, 4 * kW * n * sizeof(uint32_t), s>>>(
+  TT_DISPATCH(W, consts, [&] {
+    reduce_combine_kernel<kW, kS><<<blocks_for(C, lpb), n, 4 * kW * n * sizeof(uint32_t), s>>>(
         U32C(tot), U32C(dx), U32C(dy), U32C(dzz), U32C(dzzz), U32(out), C, S, (S + F - 1) / F,
-        F, load_consts<kW>(consts));
+        F, load_consts<kW, kS>(consts));
     return cudaGetLastError();
   });
 }

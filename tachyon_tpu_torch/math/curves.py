@@ -1,7 +1,10 @@
 """Concrete curve instances of the port (parameters as in
 ``tachyon_tpu/math/curves.py``): BN254 G1 over Fq and G2 over
 Fq2 = Fq[u]/(u^2 + 1); BLS12-381 G1 over its 381-bit Fq (12 words) and
-G2 on the M-twist y^2 = x^3 + 4(u + 1) over its Fq2 = Fq[u]/(u^2 + 1).
+G2 on the M-twist y^2 = x^3 + 4(u + 1) over its Fq2 = Fq[u]/(u^2 + 1);
+secp256k1, y^2 = x^3 + 7 over a full-width 256-bit p (the point kernels'
+64-bit CIOS form); Pallas and Vesta, y^2 = x^3 + 5, each the other's
+scalar field (255 bits: the even/odd chains, as BN254).
 
 Every constructor puts the field's constants on the card unless the caller
 passes another device (the CPU tests pass ``"cpu"``)."""
@@ -107,4 +110,49 @@ def bls12_381_g2(device=torch.device("cuda")) -> SWCurve:
         gen_x=list(bls.G2_GEN[0]),
         gen_y=list(bls.G2_GEN[1]),
         scalar_field=bls12_381_fr(device),
+    )
+
+
+def secp256k1_fq(device=torch.device("cuda")) -> PrimeField:
+    return PrimeField(presets.SECP256K1_FQ, device)
+
+
+def secp256k1_fr(device=torch.device("cuda")) -> PrimeField:
+    return PrimeField(presets.SECP256K1_FR, device)
+
+
+def secp256k1(device=torch.device("cuda")) -> SWCurve:
+    return SWCurve(
+        name="secp256k1",
+        field=secp256k1_fq(device),
+        a=0,
+        b=7,
+        gen_x=55066263022277343669578718895168534326250603453777594175500187360389116729240,
+        gen_y=32670510020758816978083085130507043184471273380659243275938904335757337482424,
+        scalar_field=secp256k1_fr(device),
+    )
+
+
+def pallas(device=torch.device("cuda")) -> SWCurve:
+    # gen = (-1, 2): (-1)^3 + 5 = 4 = 2^2
+    return SWCurve(
+        name="pallas",
+        field=PrimeField(presets.PALLAS_FP, device),
+        a=0,
+        b=5,
+        gen_x=presets.PALLAS_FP.p - 1,
+        gen_y=2,
+        scalar_field=PrimeField(presets.VESTA_FP, device),
+    )
+
+
+def vesta(device=torch.device("cuda")) -> SWCurve:
+    return SWCurve(
+        name="vesta",
+        field=PrimeField(presets.VESTA_FP, device),
+        a=0,
+        b=5,
+        gen_x=presets.VESTA_FP.p - 1,
+        gen_y=2,
+        scalar_field=PrimeField(presets.PALLAS_FP, device),
     )

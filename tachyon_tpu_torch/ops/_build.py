@@ -2,10 +2,11 @@
 
 Every ``csrc/*.cu`` is compiled by its own ``nvcc``, all started together,
 and the objects are linked into one shared library with a plain C interface
-(no PyTorch headers, so a build takes seconds):
+(no PyTorch headers, so no PyTorch extension build):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
-         -Xcompiler -fPIC -c -o <src>.o csrc/<src>.cu     # one per source
+         -Xcompiler -fPIC -Xptxas -v -split-compile 0 \
+         -c -o <src>.o csrc/<src>.cu                      # one per source
     nvcc -gencode arch=compute_90a,code=sm_90a -shared -o libtachyon_kernels.so *.o
 
 The library lands in ``tachyon_tpu_torch/_build/<key>/``, where the key
@@ -28,7 +29,11 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# -split-compile 0: nvcc optimizes a source's kernels on every core at once
+# (the build of all sources took 86.6 s against 165.2 s without it on the
+# H100's host, PERF.md)
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-split-compile", "0"]
 
 # (name, argtypes) of every extern "C" launcher; each returns cudaError_t
 _P = ctypes.c_void_p

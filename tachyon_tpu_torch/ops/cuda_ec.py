@@ -29,7 +29,10 @@ Replace the Pallas kernels of ``tachyon_tpu/ops/pallas_ec.py``:
 
 Kernels (``csrc/ec.cu``, ``csrc/ladder.cu``, ``csrc/xyzz.cuh``): one thread
 per point; each coordinate is a word-major ``(W, n)`` array so the loads of
-a warp coalesce.  Bound on the card: an add is 14 field multiplies (~1.9k
+a warp coalesce.  Every kernel here and in ``cuda_msm`` is built for each
+(W, form) of ``cuda_mont.kernel_form``: W = 8 with the spare-bit multiply
+(BN254, Pallas, Vesta) or the 64-bit CIOS (secp256k1's full-width p), and
+W = 12; its launcher picks the instantiation from p's top word.  Bound on the card: an add is 14 field multiplies (~1.9k
 word products) and a mixed add 10 (~1.4k) against 384 and 324 bytes moved,
 so both are bound by integer multiplies once there are enough points to
 fill 132 SMs; only the naive MSM's tree reduce and Pedersen's last add
@@ -185,7 +188,7 @@ def _flat(f: FieldSpec, coords):
     for t in coords:
         if t.shape != coords[0].shape:
             raise ValueError(f"coordinate shapes differ: {t.shape} vs {coords[0].shape}")
-    W = check_cuda(f, *coords)
+    W = check_cuda(f, *coords).W
     n = coords[0].numel() // W
     return [t.view(W, n) for t in coords], batch, n
 
@@ -200,7 +203,7 @@ def add_xyzz(f: FieldSpec, p, q):
     if n:
         _build.launch("tt_add_xyzz", *(t.data_ptr() for t in coords + outs), n,
                       consts_ptr(f), coords[0].shape[0])
-        count_launch(add_xyzz, coords[0].shape[0])
+        count_launch(add_xyzz, f)
     return tuple(o.view(-1, *batch) for o in outs)
 
 
@@ -214,7 +217,7 @@ def dbl_xyzz(f: FieldSpec, p):
     if n:
         _build.launch("tt_dbl_xyzz", *(t.data_ptr() for t in coords + outs), n,
                       consts_ptr(f), coords[0].shape[0])
-        count_launch(dbl_xyzz, coords[0].shape[0])
+        count_launch(dbl_xyzz, f)
     return tuple(o.view(-1, *batch) for o in outs)
 
 
@@ -233,7 +236,7 @@ def madd_xyzz(f: FieldSpec, p, qx, qy, qinf):
     if n:
         _build.launch("tt_madd_xyzz", *(t.data_ptr() for t in coords + [flags] + outs), n,
                       consts_ptr(f), coords[0].shape[0])
-        count_launch(madd_xyzz, coords[0].shape[0])
+        count_launch(madd_xyzz, f)
     return tuple(o.view(-1, *batch) for o in outs)
 
 
@@ -255,7 +258,7 @@ def scalar_mul(f: FieldSpec, px, py, pinf, scalars):
         _build.launch("tt_scalar_mul_xyzz",
                       *(t.data_ptr() for t in coords + [flags, scalars] + outs), n,
                       scalars.shape[0], consts_ptr(f), coords[0].shape[0])
-        count_launch(scalar_mul, coords[0].shape[0])
+        count_launch(scalar_mul, f)
     return tuple(o.view(-1, *batch) for o in outs)
 
 
@@ -311,7 +314,7 @@ def _lanes_in(f: FieldSpec, p, bias=None):
     for t in p:
         if t.ndim != 2 or t.shape != p[0].shape:
             raise ValueError(f"lane coords must be four (W, C) tensors, got {t.shape}")
-    W = check_cuda(f, *p)
+    W = check_cuda(f, *p).W
     if bias is None:
         return W, p[0].shape[1], (None,) * 4
     for b in bias:
@@ -335,7 +338,7 @@ def lane_suffix_scan(f: FieldSpec, u, bias=None):
         buf = torch.empty((2, 4, W, C), dtype=u[0].dtype, device=u[0].device)
         _build.launch("tt_lane_suffix_scan", *(t.data_ptr() for t in u), *bp, buf.data_ptr(),
                       *(o.data_ptr() for o in outs), C, consts_ptr(f), W)
-        count_launch(lane_suffix_scan, W)
+        count_launch(lane_suffix_scan, f)
     return outs
 
 
@@ -366,7 +369,7 @@ def lane_fold(f: FieldSpec, pts, out=None, bias=None):
                              f"{pts[0].device}")
     _build.launch("tt_lane_fold", *(t.data_ptr() for t in pts), *bp,
                   *(o.data_ptr() for o in out), stride, C, consts_ptr(f), W)
-    count_launch(lane_fold, W)
+    count_launch(lane_fold, f)
     return tuple(out)
 
 
@@ -396,21 +399,21 @@ def horner(f: FieldSpec, wins, c: int):
     outs = tuple(torch.empty((W,), dtype=t.dtype, device=t.device) for t in wins)
     _build.launch("tt_horner_xyzz", *(t.data_ptr() for t in wins), *(o.data_ptr() for o in outs),
                   nwin, c, consts_ptr(f), W)
-    count_launch(horner, W)
+    count_launch(horner, f)
     return outs
 
 
 add_xyzz.launches = 0
-add_xyzz.launches_by_w = {}
+add_xyzz.launches_by_form = {}
 dbl_xyzz.launches = 0
-dbl_xyzz.launches_by_w = {}
+dbl_xyzz.launches_by_form = {}
 madd_xyzz.launches = 0
-madd_xyzz.launches_by_w = {}
+madd_xyzz.launches_by_form = {}
 scalar_mul.launches = 0
-scalar_mul.launches_by_w = {}
+scalar_mul.launches_by_form = {}
 lane_suffix_scan.launches = 0
-lane_suffix_scan.launches_by_w = {}
+lane_suffix_scan.launches_by_form = {}
 lane_fold.launches = 0
-lane_fold.launches_by_w = {}
+lane_fold.launches_by_form = {}
 horner.launches = 0
-horner.launches_by_w = {}
+horner.launches_by_form = {}

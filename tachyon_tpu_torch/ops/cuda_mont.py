@@ -11,8 +11,9 @@ TPU's 16 rounds of 16-bit limbs; 12 for BLS12-381's Fq instead of 24).
 At W = 8, where p has a spare bit (p < 2^(32 W - 1), BN254's Fq and Fr)
 the rounds are PTX multiply-add chains in sppark's even/odd layout; a
 full-width p (secp256k1) takes 64-bit CIOS products, and so does every
-W = 12 field.  The launcher picks the form; the point kernels take a
-spare bit (``check_cuda`` refuses them other fields) and W = 8 or 12.
+W = 12 field.  The launcher picks the form from p's top word, as every
+kernel's launcher does (``kernel_form`` gives the same (W, form) here); the
+point kernels take W = 8 in both forms and W = 12.
 Bound on the card: at 2^22 elements it moves 96 bytes per element
 against 136 word products at W = 8 (144 against 300 at W = 12), so it
 sits near the memory roofline; on the MSM path it
@@ -36,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -44,16 +46,41 @@ from tachyon_tpu_torch.fields.limbs import int_to_words, n0inv32, word_count
 from tachyon_tpu_torch.ops import _build
 from tachyon_tpu_torch.ops.mont import _consts, csub_p, ripple, widen
 
-SUPPORTED_W = (1, 8, 12)  # word counts K1 is instantiated for (31-bit fields, BN254, BLS12-381)
-POINT_W = {8, 12}  # the point and MSM kernels: BN254 and BLS12-381's Fq
+SUPPORTED_W = (1, 8, 12)  # word counts K1 is instantiated for (31-bit fields, W = 8, BLS12-381)
+POINT_W = {8, 12}  # the point and MSM kernels: BN254, secp256k1, Pallas, Vesta; BLS12-381's Fq
 
 
-def count_launch(wrapper, W: int) -> None:
-    """One launch of ``wrapper``'s kernel at W words: ``wrapper.launches``
-    counts every launch, ``wrapper.launches_by_w`` them by word count (K1
-    runs at W = 8 and 12 on the BLS12-381 path)."""
+class Form(NamedTuple):
+    """The instantiation of the kernels a field takes: its word count W and
+    the multiply's form, the even/odd PTX chains (``spare``: W = 8 and
+    p < 2^255) or the 64-bit CIOS (a full-width p, every W = 12 field, and
+    K1 at one word).  ``tag`` names it in the launch counts: w8_spare,
+    w8_full, w12_full, w1_full."""
+    W: int
+    spare: bool
+
+    @property
+    def tag(self) -> str:
+        return f"w{self.W}_{'spare' if self.spare else 'full'}"
+
+
+def kernel_form(f: FieldSpec) -> Form:
+    """The (W, form) the launchers pick for f from p's top word, by the rule
+    of ``csrc/field.cuh``'s TT_DISPATCH: the chains only at W = 8 with a
+    spare bit."""
+    W = word_count(f)
+    return Form(W, W == 8 and has_spare_bit(f))
+
+
+def count_launch(wrapper, f: FieldSpec) -> None:
+    """One launch of ``wrapper``'s kernel for field f: ``wrapper.launches``
+    counts every launch, ``wrapper.launches_by_form`` them by the
+    instantiation's tag (``Form.tag``: K1 runs at W = 8 and 12 on the
+    BLS12-381 path; BN254 takes the w8_spare kernels and secp256k1 the
+    w8_full ones)."""
     wrapper.launches += 1
-    wrapper.launches_by_w[W] = wrapper.launches_by_w.get(W, 0) + 1
+    tag = kernel_form(f).tag
+    wrapper.launches_by_form[tag] = wrapper.launches_by_form.get(tag, 0) + 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -74,17 +101,17 @@ def has_spare_bit(f: FieldSpec) -> bool:
     return f.p >> (32 * word_count(f) - 1) == 0
 
 
-def check_cuda(f: FieldSpec, *ts: torch.Tensor, any_width: bool = False) -> int:
-    """Check the kernels can take these tensors; returns W.  Only K1 takes a
-    full-width p (``any_width``); the point kernels need a spare bit."""
+def check_cuda(f: FieldSpec, *ts: torch.Tensor, any_width: bool = False) -> Form:
+    """Check the kernels can take field f and these tensors (CUDA int32
+    words on one device, contiguous); returns f's ``Form``.  K1 takes every
+    W of SUPPORTED_W (``any_width``); the point kernels W = 8 (either form:
+    a full-width p takes the 64-bit CIOS) and W = 12."""
     W = word_count(f)
     if W not in SUPPORTED_W:
         raise ValueError(f"{f.name}: no CUDA kernel for W={W} (have {SUPPORTED_W})")
     if not any_width and W not in POINT_W:
         raise ValueError(f"{f.name}: the point kernels take W in {sorted(POINT_W)}, not W={W}")
-    if not any_width and not has_spare_bit(f):
-        raise ValueError(f"{f.name}: the point kernels need p < 2^{32 * W - 1}")
-    dev = ts[0].get_device()
+    dev = ts[0].get_device() if ts else None
     for t in ts:
         if not t.is_cuda or t.get_device() != dev:
             raise ValueError(f"tensors must share one CUDA device, got {t.device}")
@@ -92,7 +119,7 @@ def check_cuda(f: FieldSpec, *ts: torch.Tensor, any_width: bool = False) -> int:
             raise TypeError(f"expected int32 words, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
-    return W
+    return kernel_form(f)
 
 
 def mul_plain(f: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -174,12 +201,12 @@ def mul1(f: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if n:
         _build.launch("tt_mont_mul1", a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
                       inner, period, consts_ptr(f))
-        count_launch(mul1, 1)
+        count_launch(mul1, f)
     return out
 
 
 mul1.launches = 0
-mul1.launches_by_w = {}
+mul1.launches_by_form = {}
 
 
 def mul(f: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -192,15 +219,15 @@ def mul(f: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.shape != b.shape:
         a, b = torch.broadcast_tensors(a, b)
     a, b = a.contiguous(), b.contiguous()
-    W = check_cuda(f, a, b, any_width=True)
+    W = check_cuda(f, a, b, any_width=True).W
     n = a.numel() // W
     out = torch.empty_like(a)
     if n:
         _build.launch("tt_mont_mul", a.data_ptr(), b.data_ptr(), out.data_ptr(),
                       n, consts_ptr(f), W)
-        count_launch(mul, W)
+        count_launch(mul, f)
     return out
 
 
 mul.launches = 0
-mul.launches_by_w = {}
+mul.launches_by_form = {}

@@ -214,7 +214,7 @@ def suffix_sweep(f: FieldSpec, x, y, inf, d):
     plan = suffix_sweep_plan(f, x, y, inf, d)
     run_plan(plan)
     if plan.launches:
-        count_launch(suffix_sweep, x.shape[1])
+        count_launch(suffix_sweep, f)
     return plan.outs
 
 
@@ -323,7 +323,7 @@ def reduce_sweep(f: FieldSpec, xyzz, d):
     plan = reduce_sweep_plan(f, xyzz, d)
     run_plan(plan)
     if plan.launches:
-        count_launch(reduce_sweep, xyzz[0].shape[1])
+        count_launch(reduce_sweep, f)
     return plan.outs
 
 
@@ -365,13 +365,13 @@ def bucket_add(f: FieldSpec, t, wpp, pos, C2: int):
     outs = tuple(out.unbind(0))
     _build.launch("tt_bucket_add", *(x.data_ptr() for x in (*t, *wpp, pos, *outs)),
                   R, C, B, C2, consts_ptr(f), W)
-    count_launch(bucket_add, W)
+    count_launch(bucket_add, f)
     return outs
 
 
 suffix_sweep.launches = 0
-suffix_sweep.launches_by_w = {}
+suffix_sweep.launches_by_form = {}
 reduce_sweep.launches = 0
-reduce_sweep.launches_by_w = {}
+reduce_sweep.launches_by_form = {}
 bucket_add.launches = 0
-bucket_add.launches_by_w = {}
+bucket_add.launches_by_form = {}

@@ -168,10 +168,18 @@ def test_point_repack_and_input_checks():
     assert cuda_mont.SUPPORTED_W == (1, 8, 12) and cuda_mont.POINT_W == {8, 12}
     with pytest.raises(ValueError, match="no CUDA kernel for W=2"):
         cuda_mont.check_cuda(presets.GOLDILOCKS, aff.x)
-    # and the point kernels only fields with a spare bit (K1 takes any p)
+    # the point kernels take a full-width p at W = 8 (secp256k1: the 64-bit
+    # CIOS form) as well as a spare bit (the chains), and name the form;
+    # the tensors must still be CUDA int32 words
     assert cuda_mont.has_spare_bit(f) and not cuda_mont.has_spare_bit(presets.SECP256K1_FQ)
-    with pytest.raises(ValueError, match="point kernels"):
+    assert cuda_mont.check_cuda(presets.SECP256K1_FQ) == cuda_mont.Form(8, False)
+    assert cuda_mont.check_cuda(f).tag == "w8_spare"
+    assert cuda_mont.check_cuda(presets.BLS12_381_FQ).tag == "w12_full"
+    with pytest.raises(ValueError, match="one CUDA device"):
         cuda_mont.check_cuda(presets.SECP256K1_FQ, aff.x)
+    # Goldilocks (W = 2) has no kernel, for K1 or the point kernels
+    with pytest.raises(ValueError, match="no CUDA kernel for W=2"):
+        cuda_mont.check_cuda(presets.GOLDILOCKS, aff.x, any_width=True)
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
