@@ -84,7 +84,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    16 sampled leaves of each round's tree, rehashed with permute_host,
    equal its leaf digests; then the Fibonacci uni-STARK at n = 2^20 (the
    same FRI config): prove and verify, timed; it verifies and fails for the
-   public output + 1; with peak memory and K1's launches;
+   public output + 1; get_evaluations_on_domain (SP1's quotient-domain
+   read) on round 0's matrix at 2^20, 8 sampled values against the host
+   interpolant of the column on the coset; with peak memory and K1's
+   launches;
 9. groth16_bls12_381: every kernel's W = 12 instantiation (BLS12-381's
    381-bit Fq) against its plain twin on the card, word for word, at the
    BLS12-381 path's shapes (BLS_SIZES: K1 at (12, 2^22) and on edge
@@ -116,17 +119,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain MSM and the host point; FixedBaseMSM on G at 2^20 scalars (c = 8),
    64 sampled results against host multiples; the MSM at 2^20 over Pallas
    and over Vesta (spare-bit kernels only) against host points;
-11. prints the card's line, the kernels' JSON line (an entry for every
-   kernel at W = 8 on a spare bit, K1 at W = 1, every kernel at W = 12
-   named ``<name>_w12`` and every full-width W = 8 instantiation named
-   ``<name>_w8_full``), then the result line
+11. goldilocks: K1 at W = 2 (Goldilocks, p = 2^64 - 2^32 + 1: its own
+   kernel, a 64-bit Montgomery round that keeps the carry into bit 64) at
+   (2, 2^24) against its twin, word for word, timed beside its bound (24
+   bytes an element), on every pair of edge operands (0, 1, mont(1), values
+   of 2^63 and above, p - 1; some carry into bit 64), with an NTT stage's
+   twiddles read in place, and its host cost per call at n = 1;
+   goldilocks2's mul, square and inv on 2^20 elements, 64 of each against
+   host ints; Poseidon2 goldilocks_w8 on 2^22 states, 64 against
+   permute_host; then the main path: coset_lde_batch of a 2^20 x 100
+   Goldilocks matrix (the evaluations on H of random polynomials from SEED)
+   at log_blowup 3, shift 7, 16 sampled outputs against host Horner at
+   7 w^i, with its time, peak memory and K1's W = 2 launches (no kernel of
+   another width); MixedRadixDomain over Goldilocks at 3 x 2^20 and
+   bn254_fr at 9 x 2^18 (ifft(fft(x)) == x, 4 outputs each against a host
+   DFT sum, DomainCache's types); SimpleFRI over BabyBear at 2^20
+   evaluations and 16 queries (verifies, refuses a tampered layer value);
+   the sumcheck over Goldilocks on 3 MLEs of 2^22 entries (verifies, its
+   claim is the host sum, a claim + 1 is refused);
+12. prints the card's line, the kernels' JSON line (an entry for every
+   kernel at W = 8 on a spare bit, K1 at W = 1 and W = 2, every kernel at
+   W = 12 named ``<name>_w12`` and every full-width W = 8 instantiation
+   named ``<name>_w8_full``), then the result line
    {"ok": true, "device": {"platform": "gpu", ...}} last.
 
-Each main path (4, 5, 6, 7, 8's PCS and uni-STARK runs, 9 and 10's) runs with
-every launch count set to 0 just before it, and fails if a kernel of that
-path (MSM_PATH, KZG_PATH, GROTH16_PATH, CIRCOM_PATH, STARK_PATH) was
-launched no time; the launches are also counted by instantiation
-(``cuda_mont.Form.tag``: w8_spare, w8_full, w12_full, w1_full).  Phase 3 also holds, at
+Each main path (4, 5, 6, 7, 8's PCS and uni-STARK runs, 9, 10's and 11's
+LDE) runs with every launch count set to 0 just before it, and fails if a
+kernel of that path (MSM_PATH, KZG_PATH, GROTH16_PATH, CIRCOM_PATH,
+STARK_PATH, GOLDILOCKS_PATH) was launched no time; the launches are also
+counted by instantiation (``cuda_mont.Form.tag``: w8_spare, w8_full,
+w12_full, w1_full, w2_full).  Phase 3 also holds, at
 the 2^18 paths' shapes (c = 14), K5 at the Groth16 path's (65, 8, 4096)
 and the circom path's (64, 8, 4096), K6 at their (32, 8, 512), the bucket
 kernel on T rows (64, 8, 4096) and (65, 8, 4096) with 2^14 buckets into
@@ -151,16 +173,18 @@ import torch
 
 from scripts import circom_key, fri_pinned
 from scripts.make_torch_stark_fixture import fib_air
-from tachyon_tpu_torch.crypto import kzg, pedersen, poseidon2
+from tachyon_tpu_torch.crypto import kzg, pedersen, poseidon2, sumcheck
 from tachyon_tpu_torch.crypto.challenger import DuplexChallenger
+from tachyon_tpu_torch.crypto.simple_fri import SimpleFRI
 from tachyon_tpu_torch.crypto.fri import FRIConfig, TwoAdicFRIPCS
 from tachyon_tpu_torch.fields import extensions, limbs, presets
 from tachyon_tpu_torch.io.zkey import parse_wtns, parse_zkey
-from tachyon_tpu_torch.math import curves, fixed_msm, glv, host_ec
+from tachyon_tpu_torch.math import curves, fixed_msm, glv, host_ec, mle
 from tachyon_tpu_torch.math.ec import AffinePoint, PointXYZZ
 from tachyon_tpu_torch.math.msm import _blind_points, _bcast, msm, optimal_window_bits
 from tachyon_tpu_torch.math.field import PrimeField
-from tachyon_tpu_torch.math.ntt import Radix2Domain
+from tachyon_tpu_torch.math.extfield import HostExt
+from tachyon_tpu_torch.math.ntt import DomainCache, MixedRadixDomain, Radix2Domain, coset_lde_batch
 from tachyon_tpu_torch.ops import _build, cuda_ec, cuda_mont, cuda_msm, mont
 from tachyon_tpu_torch.zk.air import expressions as air_expr
 from tachyon_tpu_torch.zk.air.stark import UniStark
@@ -190,6 +214,7 @@ SIZES = {
     "k1_fq": 1 << 22,       # K1 elements, BN254 Fq
     "k1_fr": 1 << 16,       # K1 elements, BN254 Fr
     "k1_w1": 1 << 24,       # K1 elements at W = 1, BabyBear
+    "k1_w2": 1 << 24,       # K1 elements at W = 2, Goldilocks
     # K2 lanes: the widest add of the naive MSM's tree reduce (64 points),
     # then the former T-gather width 2^c - 1
     "k2": (32, (1 << 17) - 1),
@@ -239,6 +264,8 @@ KERNELS = {
     "mont_mul": (cuda_mont.mul, "tachyon_tpu_torch/csrc/mont_mul.cu",
                  "tachyon_tpu/ops/pallas_mont.py:90"),
     "mont_mul_w1": (cuda_mont.mul1, "tachyon_tpu_torch/csrc/mont_mul.cu",
+                    "tachyon_tpu/ops/pallas_mont.py:90"),
+    "mont_mul_w2": (cuda_mont.mul2, "tachyon_tpu_torch/csrc/mont_mul.cu",
                     "tachyon_tpu/ops/pallas_mont.py:90"),
     "add_xyzz": (cuda_ec.add_xyzz, "tachyon_tpu_torch/csrc/ec.cu",
                  "tachyon_tpu/ops/pallas_ec.py:209"),
@@ -352,10 +379,10 @@ def k1_call_us(f, device) -> tuple[float, float]:
     a = mont.ones(f, (1,), device)
     b, out = a.clone(), torch.empty_like(a)
     stream = torch.cuda.current_stream().cuda_stream
-    if limbs.word_count(f) == 1:
+    if limbs.word_count(f) in (1, 2):
         args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), 1, 1, 1, cuda_mont.consts_ptr(f),
                 stream)
-        launcher = _build.launcher("tt_mont_mul1")
+        launcher = _build.launcher(f"tt_mont_mul{limbs.word_count(f)}")
     else:
         args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), 1, cuda_mont.consts_ptr(f),
                 limbs.word_count(f), stream)
@@ -1799,6 +1826,55 @@ def stark_air_inputs(device, log_n: int = None):
     return UniStark(pcs, fib_air(air_expr)), trace, pubs
 
 
+QUOTIENT_SAMPLES = 8  # get_evaluations_on_domain values checked on the host
+
+
+def pow_mod_vec(x: np.ndarray, e: int, p: int) -> np.ndarray:
+    """x^e mod p elementwise, int64, for p < 2^31 (products below 2^62)."""
+    acc = np.ones_like(x)
+    while e:
+        if e & 1:
+            acc = acc * x % p
+        x = x * x % p
+        e >>= 1
+    return acc
+
+
+def interpolant_at(vals: np.ndarray, x: int, w: int, p: int) -> int:
+    """The value at x, off H, of the polynomial of degree < n with values
+    vals (int64, canonical) on H = <w>, n = len(vals) a power of two:
+    (x^n - 1) / n * sum_j vals_j w^j / (x - w^j), in int64 numpy (p < 2^31)."""
+    n = len(vals)
+    lo_n = min(n, 1024)
+    lo = np.array([pow(w, j, p) for j in range(lo_n)], dtype=np.int64)
+    hi = np.array([pow(w, lo_n * j, p) for j in range(n // lo_n)], dtype=np.int64)
+    wj = (hi[:, None] * lo[None, :] % p).reshape(-1)  # w^j, j = i lo_n + l
+    inv = pow_mod_vec((x - wj) % p, p - 2, p)
+    s = int(((vals * wj % p) * inv % p).sum()) % p
+    return (pow(x, n, p) - 1) * pow(n, p - 2, p) % p * s % p
+
+
+def quotient_domain_check(pcs, data, mat, device) -> dict:
+    """get_evaluations_on_domain on a committed (1, n, C) BabyBear matrix at
+    size n, timed: QUOTIENT_SAMPLES sampled values against host evaluations
+    of the column's interpolant (from the matrix's values on H) at g w_n^k."""
+    F, n = pcs.F, mat.shape[1]
+    ev, ms = timed_once(lambda: pcs.get_evaluations_on_domain(data, 0, n))
+    if tuple(ev.shape) != tuple(mat.shape):
+        raise AssertionError(f"get_evaluations_on_domain: shape {tuple(ev.shape)}")
+    rng = np.random.default_rng(SEED + 16)
+    ks = rng.integers(0, n, QUOTIENT_SAMPLES).tolist()
+    cs = rng.integers(0, mat.shape[2], QUOTIENT_SAMPLES).tolist()
+    p, g, w = F.p, F.spec.generator, F.spec.root_of_unity(n)
+    got = F.to_canonical(ev[:, ks, cs]).tolist()
+    for k, c, v in zip(ks, cs, got):
+        col = F.to_canonical(mat[:, :, c]).cpu().numpy().astype(np.int64)
+        if v != interpolant_at(col, g * pow(w, k, p) % p, w, p):
+            raise AssertionError(f"get_evaluations_on_domain: row {k} column {c} differs from "
+                                 "the interpolant on the coset")
+    return {"size": n, "ms": round(ms, 4), "sampled": QUOTIENT_SAMPLES}
+
+
 def phase_stark(device, clock_hz, results):
     """Phase 8: K1 at W = 1, Poseidon2 and the pinned transcript on the card,
     then the PCS and the uni-STARK through the port's entry points, each
@@ -1845,14 +1921,18 @@ def phase_stark(device, clock_hz, results):
             if host_leaf(h, [int(v) for v in rows[j]]) != [int(v) for v in digests[:, j]]:
                 raise AssertionError(f"PCS round {r}: leaf {leaves[j]}'s digest differs from "
                                      "its host hash")
+    quotient = quotient_domain_check(pcs, datas[0], mats[0], device)
     checks_s = time.perf_counter() - t0
+    log(f"[stark-quotient] get_evaluations_on_domain(round 0, 2^{STARK_LOG_N}) "
+        f"{json.dumps(quotient)}")
     log(f"[stark-pcs] baby_bear rounds={STARK_ROUNDS} rows=2^{STARK_LOG_N} cols={C} "
         f"fri={json.dumps(dataclasses.asdict(cfg))} verified=True tampered_rejected=True "
         f"leaves_checked={STARK_LEAVES * STARK_ROUNDS} "
         f"pcs_s={pcs_s:.3f} checks_s={checks_s:.3f} peak_mem_bytes={pcs_peak} "
         f"pow_witness={proof.pow_witness} steps={json.dumps(steps)} "
         f"launches={json.dumps(pcs_launches)}")
-    results["stark_pcs"] = {"steps": steps, "pcs_s": pcs_s, "peak_mem_bytes": pcs_peak}
+    results["stark_pcs"] = {"steps": steps, "pcs_s": pcs_s, "peak_mem_bytes": pcs_peak,
+                            "quotient_domain": quotient}
     del datas, opened, proof, mats, roots, tampered, bad_val
 
     # the Fibonacci uni-STARK at 2^STARK_LOG_N
@@ -1906,6 +1986,7 @@ BLS_SIZES = {
 DEVICE_KERNELS = {
     "mont_mul": ["mont_mul_kernel<{W},{spare}>"],
     "mont_mul_w1": ["mont_mul1_kernel<0>", "mont_mul1_kernel<1>"],
+    "mont_mul_w2": ["mont_mul2_kernel<0>", "mont_mul2_kernel<1>"],
     "add_xyzz": ["add_xyzz_kernel<{W},{spare}>"], "dbl_xyzz": ["dbl_xyzz_kernel<{W},{spare}>"],
     "madd_xyzz": ["madd_xyzz_kernel<{W},{spare}>"],
     "scalar_mul_xyzz": ["scalar_mul_xyzz_kernel<{W},{spare}>"],
@@ -1962,12 +2043,12 @@ def width_kernels(curve, sizes, seed: int, clock_hz, results) -> dict:
     return extra
 
 
-FORM_TAGS = ("w1_full", "w8_spare", "w8_full", "w12_full")  # every cuda_mont.Form.tag
+FORM_TAGS = ("w1_full", "w2_full", "w8_spare", "w8_full", "w12_full")  # every cuda_mont.Form.tag
 
 
 def launches_at(tag: str) -> dict:
     """Each kernel's launches at one instantiation (``cuda_mont.Form.tag``:
-    w8_spare, w8_full, w12_full, w1_full) since the counts were set to 0."""
+    w8_spare, w8_full, w12_full, w1_full, w2_full) since the counts were set to 0."""
     return {name: k[0].launches_by_form.get(tag, 0) for name, k in KERNELS.items()}
 
 
@@ -2257,6 +2338,360 @@ def phase_secp256k1(device, clock_hz, results):
     return extra, paths
 
 
+# phase 11, the Goldilocks path: K1 at W = 2 (p = 2^64 - 2^32 + 1, no spare
+# bit), goldilocks2 and Poseidon2 goldilocks_w8 on the card, then the main
+# path, the coset LDE of a 2^20 x 100 trace at log_blowup 3 (Plonky2's
+# rate_bits = 3, Polygon's eSTARK over Goldilocks), shift 7; then
+# MixedRadixDomain (Goldilocks at 3 x 2^20, bn254_fr at 9 x 2^18), SimpleFRI
+# over BabyBear at 2^20 evaluations, and the sumcheck over Goldilocks on a
+# product of 3 MLEs of 2^22 entries
+GL_LDE = (20, 100, 3)  # log2 rows, columns, log_blowup
+GL_SHIFT = 7  # Goldilocks' multiplicative generator
+GL_LDE_SAMPLES = (4, 4)  # columns, rows a column checked against host Horner
+GL_POSEIDON2_LOG_STATES = 22
+GL_EXT_LOG_N = 20
+GL_SAMPLES = 64  # goldilocks2 products and Poseidon2 states checked on the host
+GL_MIXED = (("goldilocks", 3 << 20), ("bn254_fr", 9 << 18))
+GL_MIXED_SAMPLES = 4
+SIMPLE_FRI = (20, 16)  # log2 evaluations, queries
+SUMCHECK = (22, 3)  # log2 entries, tables
+GOLDILOCKS_PATH = ("mont_mul_w2",)
+K1_W2_PRODUCTS = 10  # word products of a two-word Montgomery multiply (2 W^2 + W)
+# 0, 1, mont(1), 2^32 - 1, 2^32, 2^63 - 1, 2^63, 2^63 + 2^32, p - 2^32, p - 2, p - 1
+GL_EDGES = (0, 1, presets.GOLDILOCKS.R_mod_p, (1 << 32) - 1, 1 << 32, (1 << 63) - 1, 1 << 63,
+            (1 << 63) + (1 << 32), presets.GOLDILOCKS.p - (1 << 32), presets.GOLDILOCKS.p - 2,
+            presets.GOLDILOCKS.p - 1)
+
+
+def gl_random(shape, g: torch.Generator, device) -> torch.Tensor:
+    """Canonical Goldilocks words (2, *shape), uniform below (2^32 - 1) 2^32
+    < p: a high word below 2^32 - 1, any low word."""
+    lo = torch.randint(0, 1 << 32, shape, dtype=torch.int64, generator=g, device=device)
+    hi = torch.randint(0, (1 << 32) - 1, shape, dtype=torch.int64, generator=g, device=device)
+    return mont.narrow(torch.stack([lo, hi]))
+
+
+def u64_ints(words: torch.Tensor) -> list:
+    """(2, n) words of 64-bit values -> n Python ints."""
+    w = mont.widen(words.reshape(2, -1)).cpu()
+    return (w[0] + (w[1] << 32)).numpy().astype(np.uint64).tolist()
+
+
+def carries_past_64(x: int, y: int) -> bool:
+    """The W = 2 kernel's carry into bit 64 of (t + m p) / 2^64 for words x, y."""
+    p = presets.GOLDILOCKS.p
+    t = x * y
+    m = (t % (1 << 64)) * (-pow(p, -1, 1 << 64) % (1 << 64)) % (1 << 64)
+    return (t + m * p) >> 128 != 0
+
+
+def k1_w2_check(g, device, clock_hz, results) -> None:
+    """K1 at W = 2: Goldilocks at (2, 2^24) against its twin, timed beside
+    its bound (24 bytes an element); every pair of the edge operands, some of
+    whose products carry into bit 64; a broadcast b; its host cost per call."""
+    f, n = presets.GOLDILOCKS, SIZES["k1_w2"]
+    a, b = gl_random((n,), g, device), gl_random((n,), g, device)
+    a[:, 3:6] = b[:, 3:6]  # some squares
+    got, want = cuda_mont.mul(f, a, b), cuda_mont.mul_plain(f, a, b)
+    torch.cuda.synchronize()
+    check("mont_mul_w2", (got,), (want,), cuda_ms(lambda: cuda_mont.mul(f, a, b), 20),
+          cuda_ms(lambda: cuda_mont.mul_plain(f, a, b), 2), f"{f.name} (2, {n})",
+          f"{f.name} (2, {n})", (24 * n, K1_W2_PRODUCTS * n, clock_hz), results,
+          per_mul=K1_W2_PRODUCTS)
+    del got, want
+    xs = [x for x in GL_EDGES for _ in GL_EDGES]
+    ys = [y for _ in GL_EDGES for y in GL_EDGES]
+    carries = sum(carries_past_64(x, y) for x, y in zip(xs, ys))
+    ea, eb = limbs.from_ints(xs, 2, device), limbs.from_ints(ys, 2, device)
+    err = word_err((cuda_mont.mul(f, ea, eb),), (cuda_mont.mul_plain(f, ea, eb),))
+    host = [x * y * pow(1 << 64, -1, f.p) % f.p for x, y in zip(xs, ys)]
+    host_ok = u64_ints(cuda_mont.mul(f, ea, eb)) == host
+    log(f"[k1-w2-edges] {len(xs)} products of the edge operands pairwise, {carries} of them "
+        f"carrying into bit 64: max_abs_err {err}, equal to host ints {host_ok}")
+    if err or not host_ok or not carries:
+        raise AssertionError("mont_mul_w2: the edge operands differ from the twin or host ints")
+    # an NTT stage's twiddles (one per row) over 16 columns, read in place
+    x, y = a.reshape(2, n // 16, 16), b[:, :n // 16].reshape(2, n // 16, 1)
+    err = word_err((cuda_mont.mul(f, x, y),), (cuda_mont.mul_plain(f, x, y),))
+    ms = cuda_ms(lambda: cuda_mont.mul(f, x, y), 20)
+    full = y.expand(x.shape).contiguous()
+    ms_full = cuda_ms(lambda: cuda_mont.mul(f, x, full), 20)
+    bms, by = bound_ms(16 * n + 8 * y[0].numel(), K1_W2_PRODUCTS * n, clock_hz)
+    log(f"[k1-w2-broadcast] {tuple(x.shape)} x {tuple(y.shape)}: max_abs_err {err}; "
+        f"{ms:.4f} ms, {ms_full:.4f} ms with b expanded; bound {bms:.4f} ms ({by})")
+    if err:
+        raise AssertionError("mont_mul_w2: the broadcast b differs from the twin")
+    results["mont_mul_w2_broadcast"] = [{"shape": [list(x.shape), list(y.shape)], "ms": ms,
+                                         "expanded_ms": ms_full, "bound_ms": bms,
+                                         "bound_by": by}]
+    results["mont_mul_w2_edges"] = {"products": len(xs), "carry_past_64": carries}
+    wrapper_us, launcher_us = k1_call_us(f, device)
+    log(f"[k1-w2-call] {K1_CALLS} calls at n = 1, back to back: the wrapper {wrapper_us:.2f} "
+        f"us per call, its ctypes launcher alone {launcher_us:.2f} us")
+    results["mont_mul_w2_call_us"] = {"wrapper": wrapper_us, "launcher": launcher_us}
+
+
+def goldilocks2_check(g, device) -> dict:
+    """goldilocks2's mul, square and inv on 2^GL_EXT_LOG_N elements, timed;
+    GL_SAMPLES of each against host ints."""
+    ext = extensions.goldilocks2(device)
+    hx = HostExt(ext)
+    n = 1 << GL_EXT_LOG_N
+    a, b = (mont.to_mont(presets.GOLDILOCKS, gl_random((2, n), g, device)).movedim(1, 0)
+            for _ in range(2))  # (2 coefficients, 2 words, n)
+    out, times = {}, {}
+    for name, fn in (("mul", lambda: ext.mul(a, b)), ("square", lambda: ext.square(a)),
+                     ("inv", lambda: ext.inv(a))):
+        out[name], times[name] = timed_once(fn)
+    idx = torch.randint(0, n, (GL_SAMPLES,), generator=g, device=device)
+
+    def host(t):
+        return [[int(c[j]) for c in ext.decode(t[:, :, idx])] for j in range(GL_SAMPLES)]
+
+    ha, hb = host(a), host(b)
+    want = {"mul": [hx.mul(x, y) for x, y in zip(ha, hb)],
+            "square": [hx.mul(x, x) for x in ha], "inv": [hx.inv(x) for x in ha]}
+    bad = [name for name in out if host(out[name]) != want[name]]
+    if bad:
+        raise AssertionError(f"goldilocks2: {bad} differ from host ints")
+    return {"elements": n, "ms": {k: round(v, 4) for k, v in times.items()},
+            "sampled": GL_SAMPLES}
+
+
+def goldilocks_poseidon2_check(g, device) -> dict:
+    """goldilocks_w8 on 2^GL_POSEIDON2_LOG_STATES states, timed;
+    GL_SAMPLES states equal to permute_host."""
+    h = poseidon2.goldilocks_w8(device)
+    n = 1 << GL_POSEIDON2_LOG_STATES
+    plain = gl_random((h.t, n), g, device)
+    st = mont.to_mont(presets.GOLDILOCKS, plain)
+    out, first_ms = timed_once(lambda: h.permute(st))
+    ms = cuda_ms(lambda: h.permute(st), 3)
+    idx = torch.randint(0, n, (GL_SAMPLES,), generator=g, device=device)
+    ins = np.array(u64_ints(plain[:, :, idx].reshape(2, -1)), dtype=object).reshape(h.t, -1).T
+    outs = [[int(v) for v in col] for col in h.F.decode(out[:, :, idx]).T]
+    bad = sum(h.permute_host(list(x)) != y for x, y in zip(ins, outs))
+    if bad:
+        raise AssertionError(f"Poseidon2 goldilocks_w8: {bad} of {GL_SAMPLES} sampled states "
+                             "differ from permute_host")
+    return {"states": n, "first_ms": round(first_ms, 4), "ms": round(ms, 4),
+            "ns_per_state": round(ms * 1e6 / n, 3), "sampled": GL_SAMPLES}
+
+
+def host_horner(cs: list, xs: list, p: int) -> list:
+    """The polynomial with coefficients cs (lowest first) at each x."""
+    acc = [0] * len(xs)
+    for c in reversed(cs):
+        acc = [(v * x + c) % p for v, x in zip(acc, xs)]
+    return acc
+
+
+def lde_inputs(device, g, log_n: int = None):
+    """The main path's domain and matrix: a 2^log_n x C Goldilocks matrix of
+    the evaluations on H of random polynomials of degree < 2^log_n, and
+    their coefficients (plain words, from g)."""
+    log_n = GL_LDE[0] if log_n is None else log_n
+    dom = Radix2Domain(PrimeField(presets.GOLDILOCKS, device), 1 << log_n)
+    coeffs = gl_random((1 << log_n, GL_LDE[1]), g, device)
+    return dom, coeffs, dom.fft(mont.to_mont(presets.GOLDILOCKS, coeffs))
+
+
+def lde_path(device, g):
+    """The main path: coset_lde_batch of ``lde_inputs``'s matrix at
+    log_blowup, shift 7, with every launch count set to 0 just before it.
+    Returns the coefficients, the matrix, the LDE, its milliseconds, the
+    peak memory and the launches."""
+    lb = GL_LDE[2]
+    dom, coeffs, evals = lde_inputs(device, g)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    lde, ms = timed_once(lambda: coset_lde_batch(dom, evals, lb, GL_SHIFT))
+    launches = read_launches(GOLDILOCKS_PATH)
+    by_form = {tag: launches_at(tag) for tag in FORM_TAGS}
+    peak = torch.cuda.max_memory_allocated()
+    if any(by_form[t][k] for t in FORM_TAGS if t != "w2_full" for k in KERNELS):
+        raise AssertionError(f"the Goldilocks LDE launched a kernel of another width: {by_form}")
+    return coeffs, evals, lde, ms, peak, launches
+
+
+def lde_check(F, coeffs, lde, g) -> int:
+    """GL_LDE_SAMPLES (column, row) outputs against host Horner evaluations
+    of the known coefficients at 7 w^i, w of order 2^(log_n + log_blowup)."""
+    log_n, C, lb = GL_LDE
+    p, big = F.p, 1 << (log_n + lb)
+    if tuple(lde.shape) != (2, big, C):
+        raise AssertionError(f"the LDE's shape {tuple(lde.shape)} is not (2, {big}, {C})")
+    w = F.spec.root_of_unity(big)
+    cols = torch.randperm(C, generator=g, device=g.device)[:GL_LDE_SAMPLES[0]].tolist()
+    checked = 0
+    for c in cols:
+        rows = torch.randint(0, big, (GL_LDE_SAMPLES[1],), generator=g, device=g.device).tolist()
+        got = u64_ints(mont.mont_reduce(F.spec, lde[:, rows, c]))
+        want = host_horner(u64_ints(coeffs[:, :, c]), [GL_SHIFT * pow(w, i, p) % p for i in rows], p)
+        if got != want:
+            raise AssertionError(f"LDE column {c}: rows {rows} differ from host Horner")
+        checked += len(rows)
+    return checked
+
+
+def mixed_radix_check(device, g) -> dict:
+    """MixedRadixDomain over each GL_MIXED field and size: ifft(fft(x)) == x
+    word for word, GL_MIXED_SAMPLES outputs against a host DFT sum, and
+    DomainCache's domain types; each transform timed."""
+    out = {}
+    for name, n in GL_MIXED:
+        spec = getattr(presets, name.upper())
+        F = PrimeField(spec, device)
+        cache = DomainCache(F)
+        dom = cache.get(n)
+        if not isinstance(dom, MixedRadixDomain) or cache.get(n) is not dom \
+                or not isinstance(cache.get(n & -n), Radix2Domain):
+            raise AssertionError(f"DomainCache({name}): wrong domain types")
+        if name == "goldilocks":
+            plain = gl_random((n,), g, device)
+        else:
+            plain = random_elements(spec, n, g, device)
+        x = mont.to_mont(spec, plain)
+        ev, fft_ms = timed_once(lambda: dom.fft(x))
+        back, ifft_ms = timed_once(lambda: dom.ifft(ev))
+        if not torch.equal(back, x):
+            raise AssertionError(f"MixedRadixDomain({name}, {n}): ifft(fft(x)) != x")
+        cs = limbs.words_to_ints(plain.cpu().numpy().view(np.uint32))
+        ks = torch.randint(0, n, (GL_MIXED_SAMPLES,), generator=g, device=device).tolist()
+        p, w = spec.p, dom.omega_int
+        got = [int(v) for v in F.decode(ev[:, ks])]
+        if got != host_horner(cs, [pow(w, k, p) for k in ks], p):
+            raise AssertionError(f"MixedRadixDomain({name}, {n}): outputs {ks} differ from the "
+                                 "host DFT sum")
+        out[f"{name}_{n}"] = {"n1": dom.n1, "n2": dom.n2, "fft_ms": round(fft_ms, 4),
+                              "ifft_ms": round(ifft_ms, 4), "sampled": len(ks)}
+        del x, ev, back
+    return out
+
+
+def simple_fri_check(device, g) -> dict:
+    """SimpleFRI over BabyBear (baby_bear_p3_w16, DuplexChallenger(perm, 8))
+    on the 2^log_n evaluations of a random polynomial of degree < 2^(log_n
+    - 1): commit timed; verify accepts; one tampered layer value refused."""
+    log_n, queries = SIMPLE_FRI
+    h = poseidon2.baby_bear_p3_w16(device)
+    F = h.F
+    n = 1 << log_n
+    cs = torch.zeros((n,), dtype=torch.int64, device=device)
+    cs[:n // 2] = torch.randint(0, F.p, (n // 2,), generator=g, device=device)
+    evals = Radix2Domain(F, n).fft(F.encode_canonical(cs))
+    fri = SimpleFRI(F, h, queries)
+    proof, commit_ms = timed_once(lambda: fri.commit(evals, DuplexChallenger(h, 8)))
+    t0 = time.perf_counter()
+    ok = fri.verify(n, proof, DuplexChallenger(h, 8))
+    verify_s = time.perf_counter() - t0
+    idx, path = proof.query_paths[0]
+    lo, hi = path[1]
+    row = lo.opened_rows[0].clone()
+    row[0, 0] = (row[0, 0] + 1) % F.p
+    path = [*path[:1], (lo._replace(opened_rows=(row,)), hi), *path[2:]]
+    bad = proof._replace(query_paths=[(idx, path), *proof.query_paths[1:]])
+    if ok is not True or fri.verify(n, bad, DuplexChallenger(h, 8)) is not False:
+        raise AssertionError("SimpleFRI: the proof does not verify, or verifies a tampered "
+                             "layer value")
+    return {"evaluations": n, "queries": queries, "layers": len(proof.layer_roots),
+            "commit_s": round(commit_ms / 1e3, 4), "verify_s": round(verify_s, 4)}
+
+
+def sumcheck_check(device, g) -> dict:
+    """The sumcheck over Goldilocks on the product of SUMCHECK[1] MLEs of
+    2^SUMCHECK[0] entries, challenges from a Poseidon2 goldilocks_w8 duplex
+    transcript: prove timed, verify accepts with the tables' values at the
+    challenges, the claimed sum equals a host sum, a claim + 1 is refused."""
+    log_n, d = SUMCHECK
+    F = PrimeField(presets.GOLDILOCKS, device)
+    h = poseidon2.goldilocks_w8(device)
+    plain = [gl_random((1 << log_n,), g, device) for _ in range(d)]
+    tabs = [mont.to_mont(F.spec, t) for t in plain]
+
+    def sampler():
+        ch = DuplexChallenger(h, 4)
+
+        def sample(evals):
+            ch.observe_many(evals)
+            return ch.sample()
+        return sample
+
+    (proof, chals), prove_ms = timed_once(lambda: sumcheck.prove(F, tabs, sampler()))
+    pts = [F.full((), c) for c in chals]
+    finals = [int(F.decode(mle.evaluate(F, t, pts))) for t in tabs]
+    ok = sumcheck.verify(F, proof, finals, sampler())
+    bad = sumcheck.SumcheckProof(proof.round_evals, (proof.claimed_sum + 1) % F.p)
+    if ok is not True or sumcheck.verify(F, bad, finals, sampler()) is not False:
+        raise AssertionError("sumcheck: the proof does not verify, or verifies a claim + 1")
+    cols = [u64_ints(t) for t in plain]
+    p, total = F.p, 0
+    for i in range(1 << log_n):
+        v = 1
+        for c in cols:
+            v = v * c[i] % p
+        total += v
+    if proof.claimed_sum != total % p:
+        raise AssertionError("sumcheck: the claimed sum differs from the host sum")
+    return {"entries": 1 << log_n, "tables": d, "rounds": len(proof.round_evals),
+            "prove_s": round(prove_ms / 1e3, 4)}
+
+
+def phase_goldilocks(device, clock_hz, results):
+    """Phase 11: K1 at W = 2, goldilocks2 and Poseidon2 goldilocks_w8 on the
+    card, then the main path (``lde_path``), MixedRadixDomain, SimpleFRI and
+    the sumcheck, each checked.  Returns the main path's launches."""
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED + 15)
+    steps = {}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        steps[name] = round(time.perf_counter() - t0, 3)
+        t0 = time.perf_counter()
+
+    k1_w2_check(g, device, clock_hz, results)
+    lap("k1")
+    ext = goldilocks2_check(g, device)
+    log(f"[goldilocks2] {json.dumps(ext)}")
+    lap("goldilocks2")
+    perm = goldilocks_poseidon2_check(g, device)
+    log(f"[poseidon2] goldilocks_w8 {json.dumps(perm)}")
+    lap("poseidon2")
+
+    coeffs, evals, lde, ms, peak, launches = lde_path(device, g)
+    F = PrimeField(presets.GOLDILOCKS, device)
+    del evals
+    checked = lde_check(F, coeffs, lde, g)
+    log_n, C, lb = GL_LDE
+    log(f"[goldilocks-lde] coset_lde_batch rows=2^{log_n} cols={C} log_blowup={lb} "
+        f"shift={GL_SHIFT} out={tuple(lde.shape)} ({lde.numel() * 4} bytes) ms={ms:.4f} "
+        f"peak_mem_bytes={peak} checked={checked} launches={json.dumps(launches)}")
+    results["goldilocks_lde"] = {"ms": ms, "peak_mem_bytes": peak, "checked": checked,
+                                 "w2_launches": launches["mont_mul_w2"]}
+    del coeffs, lde
+    torch.cuda.empty_cache()
+    lap("lde")
+    mixed = mixed_radix_check(device, g)
+    log(f"[mixed-radix] {json.dumps(mixed)}")
+    lap("mixed_radix")
+    sfri = simple_fri_check(device, g)
+    log(f"[simple-fri] baby_bear verified=True tampered_rejected=True {json.dumps(sfri)}")
+    lap("simple_fri")
+    sc = sumcheck_check(device, g)
+    log(f"[sumcheck] goldilocks verified=True host_sum_equal=True claim_plus_one_rejected=True "
+        f"{json.dumps(sc)}")
+    lap("sumcheck")
+    log(f"[goldilocks] steps' seconds {json.dumps(steps)}")
+    results["goldilocks"] = {"goldilocks2": ext, "poseidon2": perm, "mixed_radix": mixed,
+                             "simple_fri": sfri, "sumcheck": sc, "step_s": steps}
+    return launches
+
+
 def ptxas_registers(nvcc_log: str) -> dict:
     """Registers and spill-store bytes of each kernel from ptxas's -v
     lines, by the kernel's unmangled name and its template arguments
@@ -2374,6 +2809,7 @@ def main() -> int:
     bls_extra, bls_by_form = phase("groth16_bls12_381", phase_groth16_bls12, clock_hz,
                                    results12)
     secp_extra, secp_paths = phase("secp256k1", phase_secp256k1, clock_hz, results_full)
+    gl_launches = phase("goldilocks", phase_goldilocks, clock_hz, results)
     bls_path = f"groth16_bls12_381_2^{BLS_LOG_N}"
     log(f"[phases] seconds {json.dumps(phase_s)}, since the build started "
         f"{time.perf_counter() - t0:.1f} s")
@@ -2388,6 +2824,10 @@ def main() -> int:
               "mont_mul": {"call_us": results["mont_mul_call_us"]},
               "mont_mul_w1": {"call_us": results["mont_mul_w1_call_us"],
                               "broadcast": results["mont_mul_w1_broadcast"]},
+              "mont_mul_w2": {"call_us": results["mont_mul_w2_call_us"],
+                              "broadcast": results["mont_mul_w2_broadcast"],
+                              "edges": results["mont_mul_w2_edges"],
+                              "lde": results["goldilocks_lde"]},
               "horner": {"k3_k2_loop_ms": results["horner_loop_ms"],
                          "chain": results["horner_chain"],
                          "shapes_2^18": [results["horner_2^18"]]},
@@ -2404,8 +2844,9 @@ def main() -> int:
     paths = {f"msm_2^{LOG_N}": msm_launches, f"kzg_2^{KZG_LOG_N}": kzg_launches,
              f"groth16_2^{GROTH16_LOG_N}": groth16_launches,
              f"circom_2^{CIRCOM_LOG_N}": circom_launches,
-             f"stark_2^{STARK_LOG_N}": stark_launches}
-    # an entry for every kernel at W = 8 on a spare bit (K1 at W = 1 too),
+             f"stark_2^{STARK_LOG_N}": stark_launches,
+             f"goldilocks_2^{GL_LDE[0]}": gl_launches}
+    # an entry for every kernel at W = 8 on a spare bit (K1 at W = 1 and 2 too),
     # with every main path's launches, then one named <name>_w12 for each
     # W = 12 instantiation, checked and timed at the BLS12-381 path's shapes,
     # and one named <name>_w8_full for each full-width W = 8 instantiation,
@@ -2418,9 +2859,9 @@ def main() -> int:
         extra = {**lane_numbers(res), **extra}
         for name, (_, source, replaces) in KERNELS.items():
             if name not in res:
-                continue  # K1 at one word is checked once, beside the spare-bit kernels
-            w = 1 if name == "mont_mul_w1" else form.W
-            tag = "w1_full" if w == 1 else form.tag
+                continue  # K1 at one and two words is checked once, beside the spare-bit kernels
+            w = {"mont_mul_w1": 1, "mont_mul_w2": 2}.get(name, form.W)
+            tag = {1: "w1_full", 2: "w2_full"}.get(w, form.tag)
             by_path = {p: n[name] for p, n in paths.items()} if suffix == "" else {}
             by_path[bls_path] = bls_by_form[tag][name]
             by_path.update({p: n[tag][name] for p, n in secp_paths.items()})

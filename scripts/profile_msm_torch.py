@@ -3,7 +3,7 @@
 
     python3 scripts/profile_msm_torch.py [--log-n 22] [--kzg-log-n 20]
         [--groth16-log-n 18] [--circom-log-n 18] [--stark-log-n 20]
-        [--bls12-log-n 17] [--secp-log-n 22] [--out DIR]
+        [--bls12-log-n 17] [--secp-log-n 22] [--goldilocks-log-n 20] [--out DIR]
 
 Builds the kernels, then traces, each after one warm-up run (a size of 0
 skips its path):
@@ -23,7 +23,11 @@ skips its path):
   of 2^bls12_log_n constraints, after its setup (the W = 12 kernels;
   device activity only);
 - the secp256k1 MSM (msm + to_affine) on chip_smoke.py phase 10's 2^secp_log_n
-  point set (the full-width W = 8 kernels).
+  point set (the full-width W = 8 kernels);
+- the Goldilocks path of chip_smoke.py phase 11: coset_lde_batch of a
+  2^goldilocks_log_n x 100 matrix at log_blowup 3 and Poseidon2
+  goldilocks_w8 on 2^(goldilocks_log_n + 2) states (K1 at W = 2; device
+  activity only).
 For each it prints the device time by kernel name and the device busy and
 idle shares of the traced window, and writes the Chrome trace to
 <out>/<name>_trace.json; the proves' G2 MSM launches millions of small
@@ -101,6 +105,7 @@ def main() -> int:
     ap.add_argument("--stark-log-n", type=int, default=20)
     ap.add_argument("--bls12-log-n", type=int, default=17)
     ap.add_argument("--secp-log-n", type=int, default=22)
+    ap.add_argument("--goldilocks-log-n", type=int, default=20)
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -127,6 +132,21 @@ def main() -> int:
         profile(f"secp256k1_msm_2^{args.secp_log_n}",
                 lambda: secp.to_affine(msm(secp, points, scalars)), out)
         del points, scalars
+        torch.cuda.empty_cache()
+    if args.goldilocks_log_n:
+        k = args.goldilocks_log_n
+        g = torch.Generator(device=device)
+        g.manual_seed(chip_smoke.SEED + 15)
+        dom, _, evals = chip_smoke.lde_inputs(device, g, k)
+        profile(f"goldilocks_lde_2^{k}",
+                lambda: chip_smoke.coset_lde_batch(dom, evals, chip_smoke.GL_LDE[2],
+                                                   chip_smoke.GL_SHIFT), out, host=False)
+        del dom, evals
+        torch.cuda.empty_cache()
+        h = chip_smoke.poseidon2.goldilocks_w8(device)
+        st = chip_smoke.mont.to_mont(h.F.spec, chip_smoke.gl_random((h.t, 1 << (k + 2)), g, device))
+        profile(f"goldilocks_w8_2^{k + 2}", lambda: h.permute(st), out, host=False)
+        del st
         torch.cuda.empty_cache()
     if args.kzg_log_n:
         n = 1 << args.kzg_log_n

@@ -1,11 +1,13 @@
-"""The duplex challenger (Fiat-Shamir for the STARK/FRI path), Plonky3-compatible.
+"""Challengers (Fiat-Shamir for the STARK/FRI path), Plonky3-compatible.
 
-Port of ``DuplexChallenger`` in ``tachyon_tpu/crypto/challenger.py``
-(reference: tachyon/crypto/challenger/{challenger.h,duplex_challenger.h}).
-The transcript is sequential host logic on exact Python ints through
-``Poseidon2.permute_host``; only the proof-of-work grind runs on the
-device, a batch of candidate witnesses per permutation call.
-``MultiField32Challenger`` and ``HashChallenger`` are not ported yet.
+Port of ``tachyon_tpu/crypto/challenger.py`` (reference:
+tachyon/crypto/challenger/{challenger.h,duplex_challenger.h,
+multi_field32_challenger.h,hash_challenger.h}): ``DuplexChallenger``,
+``MultiField32Challenger`` and ``HashChallenger``.  The transcript is
+sequential host logic on exact Python ints through
+``Poseidon2.permute_host``; only the duplex challenger's proof-of-work
+grind runs on the device, a batch of candidate witnesses per permutation
+call.
 """
 from __future__ import annotations
 
@@ -104,6 +106,121 @@ class DuplexChallenger:
         c = DuplexChallenger.__new__(DuplexChallenger)
         c.perm, c.R, c.F, c.t = self.perm, self.R, self.F, self.t
         c._state = list(self._state)
+        c._inputs = list(self._inputs)
+        c._outputs = list(self._outputs)
+        return c
+
+
+class MultiField32Challenger:
+    """Challenger over a big-field permutation (BN254's Poseidon2) that
+    gives 32-bit field challenges (reference: multi_field32_challenger.h,
+    multi_field32_conversions.h Reduce/Split), for recursive STARK
+    verification inside a SNARK.  ``small_p``: the small field's modulus
+    (at most 32 bits)."""
+
+    def __init__(self, perm: Poseidon2, small_p: int):
+        self.perm = perm
+        self.small_p = small_p
+        self.big_p = perm.F.p
+        self.num_f = perm.F.spec.bits // 64  # 64-bit digits of a big element
+        self.R = self.num_f * perm.t
+        self._state = [0] * perm.t
+        self._inputs: list[int] = []
+        self._outputs: list[int] = []
+
+    def _duplex(self):
+        n = self.num_f
+        for i in range((len(self._inputs) + n - 1) // n):
+            group = self._inputs[i * n:(i + 1) * n]
+            # 32-bit values packed little-endian into one big element
+            self._state[i] = sum(int(x) << (32 * j) for j, x in enumerate(group)) % self.big_p
+        self._inputs.clear()
+        self._state = self.perm.permute_host(self._state)
+        self._outputs = [((s >> (64 * j)) & ((1 << 64) - 1)) % self.small_p
+                         for s in self._state for j in range(n)]
+
+    def observe(self, value: int):
+        self._outputs.clear()
+        self._inputs.append(int(value) % self.small_p)
+        if len(self._inputs) == self.R:
+            self._duplex()
+
+    def observe_many(self, values):
+        for v in values:
+            self.observe(v)
+
+    def sample(self) -> int:
+        if self._inputs or not self._outputs:
+            self._duplex()
+        return self._outputs.pop()
+
+    def sample_array(self, n: int) -> list[int]:
+        return [self.sample() for _ in range(n)]
+
+    def sample_ext(self, degree: int) -> list[int]:
+        return self.sample_array(degree)
+
+    def sample_bits(self, bits: int) -> int:
+        return self.sample() & ((1 << bits) - 1)
+
+    def check_witness(self, bits: int, witness: int) -> bool:
+        self.observe(witness)
+        return self.sample_bits(bits) == 0
+
+    def clone(self) -> "MultiField32Challenger":
+        c = MultiField32Challenger.__new__(MultiField32Challenger)
+        c.perm, c.small_p, c.big_p, c.num_f, c.R = (self.perm, self.small_p, self.big_p,
+                                                    self.num_f, self.R)
+        c._state = list(self._state)
+        c._inputs = list(self._inputs)
+        c._outputs = list(self._outputs)
+        return c
+
+
+class HashChallenger:
+    """Hash-based challenger (reference: hash_challenger.h): a sample
+    flushes the inputs through the padding-free sponge on host ints; the
+    digest seeds the next input buffer."""
+
+    def __init__(self, perm: Poseidon2, out_len: int = 8, rate: int | None = None):
+        self.perm = perm
+        self.F = perm.F
+        self.out_len = out_len
+        self.rate = rate if rate is not None else (8 if perm.t == 16 else perm.t - 1)
+        self._inputs: list[int] = []
+        self._outputs: list[int] = []
+
+    def _hash_host(self, values: list[int]) -> list[int]:
+        """PaddingFreeSponge on host ints (overwrite-mode absorb)."""
+        p, t, rate = self.F.p, self.perm.t, self.rate
+        st = [0] * t
+        for off in range(0, len(values), rate):
+            chunk = values[off:off + rate]
+            st[:len(chunk)] = [int(v) % p for v in chunk]
+            st = self.perm.permute_host(st)
+        return st[:self.out_len]
+
+    def observe(self, value: int):
+        self._outputs.clear()
+        self._inputs.append(int(value) % self.F.p)
+
+    def observe_many(self, values):
+        for v in values:
+            self.observe(v)
+
+    def sample(self) -> int:
+        if not self._outputs:
+            out = self._hash_host(self._inputs)
+            self._outputs = list(out)
+            self._inputs = list(out)
+        return self._outputs.pop()
+
+    def sample_array(self, n: int) -> list[int]:
+        return [self.sample() for _ in range(n)]
+
+    def clone(self) -> "HashChallenger":
+        c = HashChallenger.__new__(HashChallenger)
+        c.perm, c.F, c.out_len, c.rate = self.perm, self.F, self.out_len, self.rate
         c._inputs = list(self._inputs)
         c._outputs = list(self._outputs)
         return c

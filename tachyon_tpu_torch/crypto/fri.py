@@ -209,6 +209,16 @@ class TwoAdicFRIPCS:
         return CommitData(tree, tuple(ldes), tuple(coeffs), tuple(l.shape[1] for l in ldes),
                           max_h.bit_length() - 1)
 
+    def get_evaluations_on_domain(self, data: CommitData, idx: int, size: int) -> torch.Tensor:
+        """Evaluations of committed matrix ``idx`` on g H_size, natural order:
+        the first ``size`` bit-reversed LDE rows, re-bit-reversed (reference:
+        vendors/sp1/src/baby_bear_poseidon2.rs:718; SP1's read of the trace
+        on the quotient domain)."""
+        lde = data.ldes[idx]
+        if size & (size - 1) or not 1 <= size <= lde.shape[1]:
+            raise ValueError(f"size {size}: a power of two up to the LDE's {lde.shape[1]} rows")
+        return lde[:, :size].index_select(1, _bitrev(size.bit_length() - 1, lde.device))
+
     # -------------------------------------------------------------------- open
     def _eval_at_ext(self, coeffs: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
         """Base coefficients (W, n, C) at an extension point z (D, W) ->

@@ -10,8 +10,8 @@ internal matrix in the Horizen flavour (M_I = J + diag(d)) or Plonky3's
 monty flavour (M_I = R^-1 (J + diag(d)), the R^-1 folded into d), so the
 words equal the JAX package's and the horizen-labs/Plonky3 vectors.
 
-Every S-box and internal-matrix multiply is K1 on the card (at W = 1 the
-one-word kernel, with the diagonal read in place).  The JAX package has no
+Every S-box and internal-matrix multiply is K1 on the card (at W = 1 and
+W = 2 the one- and two-word kernels, with the diagonal read in place).  The JAX package has no
 Pallas kernel of its own here.  At W = 1 two linear steps take a shorter
 form with the same canonical words: the external matrix M_E, whose entries
 are small integers, is one float64 product (every partial sum is an integer
@@ -320,8 +320,9 @@ GOLDILOCKS_W8_DIAG = [
 
 @functools.lru_cache(maxsize=None)
 def goldilocks_w8(device=torch.device("cuda")) -> Poseidon2:
-    """Goldilocks width 8, Horizen flavour (param_traits/poseidon2_goldilocks.h).
-    K1 has no W = 2 kernel yet, so this runs on the CPU only."""
+    """Goldilocks width 8, Horizen flavour (param_traits/poseidon2_goldilocks.h):
+    every S-box and internal-matrix multiply is K1 at W = 2 on the card,
+    the linear steps the word-ripple adds."""
     return Poseidon2(PrimeField(presets.GOLDILOCKS, device), width=8, alpha=7,
                      full_rounds=8, partial_rounds=22, internal="horizen",
                      internal_diag=GOLDILOCKS_W8_DIAG, external="horizen")

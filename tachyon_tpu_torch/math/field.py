@@ -80,6 +80,27 @@ class PrimeField:
         """Montgomery words -> numpy object array of Python ints."""
         return limbs.decode(self.spec, words)
 
+    def random(self, shape=(), rng: np.random.Generator | None = None):
+        """Uniform random elements, drawn on the host as the JAX package
+        draws them (each an integer of bits/8 + 8 bytes from ``rng.bytes``,
+        reduced mod p), so one generator gives both the same values."""
+        s = _shape(shape)
+        rng = rng or np.random.default_rng()
+        nbytes = (self.spec.bits + 7) // 8 + 8
+        n = int(np.prod(s)) if s else 1
+        vals = np.empty((n,), dtype=object)
+        vals[:] = [int.from_bytes(rng.bytes(nbytes), "little") % self.p for _ in range(n)]
+        return self.encode(vals.reshape(s) if s else vals[0])
+
+    def root_of_unity(self, order: int):
+        """A primitive ``order``-th root of unity (order a power of two) as
+        Montgomery words (W,)."""
+        return self.encode(self.spec.root_of_unity(order))
+
+    @property
+    def two_adicity(self) -> int:
+        return self.spec.two_adicity
+
     def encode_canonical(self, xs: torch.Tensor):
         """Canonical values (an integer tensor of any shape, each in [0, p))
         -> Montgomery words (1, *shape) on the field's device, through K1

@@ -41,6 +41,7 @@ _I64 = ctypes.c_int64
 LAUNCHERS = {
     "tt_mont_mul": [_P, _P, _P, _I64, _P, ctypes.c_int, _P],
     "tt_mont_mul1": [_P, _P, _P, _I64, _I64, _I64, _P, _P],
+    "tt_mont_mul2": [_P, _P, _P, _I64, _I64, _I64, _P, _P],
     "tt_add_xyzz": [_P] * 12 + [_I64, _P, ctypes.c_int, _P],
     "tt_dbl_xyzz": [_P] * 8 + [_I64, _P, ctypes.c_int, _P],
     "tt_madd_xyzz": [_P] * 11 + [_I64, _P, ctypes.c_int, _P],

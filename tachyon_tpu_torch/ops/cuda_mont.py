@@ -27,8 +27,15 @@ reduction round and one conditional subtract, in a grid-stride loop.  It
 moves 12 bytes an element against 3 word products, so it is bound by
 bytes; a ``b`` that broadcasts along one run of a's axes (a constant per
 Poseidon2 lane, an NTT stage's twiddles, a weight per column) is read in
-place rather than expanded first.  ``mul`` sends W = 1 there.  Goldilocks
-(W = 2) has no kernel yet and raises on the card.
+place rather than expanded first.  ``mul`` sends W = 1 there.
+
+At two words (W = 2: Goldilocks) K1 is ``mont_mul2_kernel`` behind
+``mul2``: an element as one uint64, a 128-bit product, one 64-bit
+reduction round that keeps the carry into bit 64 (Goldilocks has no spare
+bit), one conditional subtract; the same grid-stride loop and in-place
+broadcast as at W = 1, 24 bytes an element against 10 word products.  It is
+kept out of the point kernels' dispatch: ``POINT_W`` has no 2, so every
+point and sweep kernel refuses Goldilocks.
 
 ``mul_plain`` is the plain PyTorch twin: the CPU path and the reference the
 kernel is held against on the card, at every W.
@@ -46,7 +53,7 @@ from tachyon_tpu_torch.fields.limbs import int_to_words, n0inv32, word_count
 from tachyon_tpu_torch.ops import _build
 from tachyon_tpu_torch.ops.mont import _consts, csub_p, ripple, widen
 
-SUPPORTED_W = (1, 8, 12)  # word counts K1 is instantiated for (31-bit fields, W = 8, BLS12-381)
+SUPPORTED_W = (1, 2, 8, 12)  # word counts K1 is instantiated for (31-bit fields, Goldilocks, W = 8, BLS12-381)
 POINT_W = {8, 12}  # the point and MSM kernels: BN254, secp256k1, Pallas, Vesta; BLS12-381's Fq
 
 
@@ -54,8 +61,8 @@ class Form(NamedTuple):
     """The instantiation of the kernels a field takes: its word count W and
     the multiply's form, the even/odd PTX chains (``spare``: W = 8 and
     p < 2^255) or the 64-bit CIOS (a full-width p, every W = 12 field, and
-    K1 at one word).  ``tag`` names it in the launch counts: w8_spare,
-    w8_full, w12_full, w1_full."""
+    K1 at one and two words).  ``tag`` names it in the launch counts:
+    w8_spare, w8_full, w12_full, w1_full, w2_full."""
     W: int
     spare: bool
 
@@ -175,47 +182,79 @@ def broadcast_run(out_shape, b_shape) -> tuple[int, int] | None:
     return inner, period
 
 
-def mul1(f: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """K1 at W = 1 on CUDA tensors (1, *batch), broadcasting as PyTorch
-    does: the operand of the output's shape streams, the other is read in
-    place where ``broadcast_run`` finds its pattern, else expanded.  Equal
-    shapes take the short path (the wrapper's host time is K1's cost on
-    small batches)."""
-    run = None
+def _narrow_operands(a: torch.Tensor, b: torch.Tensor):
+    """Operands of K1 at W = 1 or 2, broadcasting as PyTorch does: the
+    operand of the output's shape streams (contiguous), the other is read
+    in place where ``broadcast_run`` finds its pattern over the batch axes
+    (the word axis is whole in both), else expanded.  Returns (a, b,
+    (inner, period)); equal shapes take the short path (the wrapper's host
+    time is K1's cost on small batches)."""
     if a.shape == b.shape:
         a, b = a.contiguous(), b.contiguous()
-    else:
-        shape = torch.broadcast_shapes(a.shape, b.shape)
-        if a.shape != shape and b.shape == shape:
-            a, b = b, a  # the product commutes, word for word
-        a = a.expand(shape).contiguous()
-        run = broadcast_run(shape, b.shape)
-        if run is not None and run[1] != a.numel() and a.numel() >= 1 << 32:
-            run = None  # the kernel's broadcast index is 32-bit
-        b = (b if run is not None else b.expand(shape)).contiguous()
+        return a, b, (1, a[0].numel())
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    if a.shape != shape and b.shape == shape:
+        a, b = b, a  # the product commutes, word for word
+    a = a.expand(shape).contiguous()
+    b = b.reshape((1,) * (len(shape) - b.ndim) + tuple(b.shape))
+    b = b.expand(shape[0], *b.shape[1:])  # the word axis whole
+    n = a[0].numel()
+    run = broadcast_run(shape[1:], b.shape[1:])
+    if run is not None and run[1] != n and n >= 1 << 32:
+        run = None  # the kernel's broadcast index is 32-bit
+    b = (b if run is not None else b.expand(shape)).contiguous()
+    return a, b, run or (1, n)
+
+
+def _mul_narrow(wrapper, launcher: str, f: FieldSpec, a: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """K1 at W = 1 or 2 on CUDA tensors through ``launcher``; counts a
+    launch on ``wrapper``."""
+    a, b, (inner, period) = _narrow_operands(a, b)
     if not (a.is_cuda and a.dtype == b.dtype == torch.int32 and b.device == a.device):
         check_cuda(f, a, b, any_width=True)  # raises with the reason
-    n = a.numel()
-    inner, period = run or (1, n)
+    if a.shape[0] != word_count(f):
+        raise ValueError(f"{f.name}: {a.shape[0]} words, not {word_count(f)}")
+    n = a[0].numel()
     out = torch.empty_like(a)
     if n:
-        _build.launch("tt_mont_mul1", a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
+        _build.launch(launcher, a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
                       inner, period, consts_ptr(f))
-        count_launch(mul1, f)
+        count_launch(wrapper, f)
     return out
+
+
+def mul1(f: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K1 at W = 1 on CUDA tensors (1, *batch), a broadcast b read in
+    place (``_narrow_operands``)."""
+    return _mul_narrow(mul1, "tt_mont_mul1", f, a, b)
 
 
 mul1.launches = 0
 mul1.launches_by_form = {}
 
 
+def mul2(f: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K1 at W = 2 (Goldilocks) on CUDA tensors (2, *batch), a broadcast b
+    (an NTT stage's twiddles, a Poseidon2 round's constants) read in place
+    (``_narrow_operands``)."""
+    return _mul_narrow(mul2, "tt_mont_mul2", f, a, b)
+
+
+mul2.launches = 0
+mul2.launches_by_form = {}
+
+
 def mul(f: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Montgomery product of (W, *batch) int32 words.  CPU tensors take
-    ``mul_plain``; CUDA tensors launch K1 (``mul1`` at W = 1) or raise."""
+    ``mul_plain``; CUDA tensors launch K1 (``mul1`` at W = 1, ``mul2`` at
+    W = 2) or raise."""
     if a.is_cpu and b.is_cpu:
         return mul_plain(f, a, b)
     if f.L == 2:
         return mul1(f, a, b)
+    if f.L == 4:
+        return mul2(f, a, b)
     if a.shape != b.shape:
         a, b = torch.broadcast_tensors(a, b)
     a, b = a.contiguous(), b.contiguous()

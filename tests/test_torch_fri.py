@@ -8,6 +8,8 @@ refuse a tampered one.  The challenger is held against the JAX
 ``DuplexChallenger`` on the same observations (its grind through one JAX
 permutation batch, about ten seconds of XLA compile), the Merkle tree at
 mixed heights against a tree of ``permute_host`` digests.
+``get_evaluations_on_domain`` is held against the JAX method on the same
+LDE rows and against the committed matrix's interpolant on the coset.
 """
 import json
 
@@ -58,6 +60,35 @@ def test_verify_accepts_and_rejects(pinned):
     assert pcs.verify_opening_proof(roots, dims, points, tampered, proof, verifier()) is False
     wrong_pow = proof._replace(pow_witness=proof.pow_witness + 1)
     assert pcs.verify_opening_proof(roots, dims, points, opened, wrong_pow, verifier()) is False
+
+
+@pytest.mark.parametrize("size", [8, 32, 64])
+def test_get_evaluations_on_domain_vs_jax(pinned, size):
+    """The first ``size`` bit-reversed LDE rows of the pinned round-0
+    matrix (32 x 3, 64 LDE rows), re-bit-reversed, equal the JAX method's
+    on the same rows and the matrix's interpolant at g w_size^k."""
+    from types import SimpleNamespace
+
+    import jax.numpy as jnp
+    from tachyon_tpu.crypto.fri import TwoAdicFRIPCS as JPCS
+    from tachyon_tpu_torch.fields import limbs
+
+    pcs, datas = pinned[0], pinned[1]
+    F, p = pcs.F, pcs.F.p
+    got = pcs.get_evaluations_on_domain(datas[0], 0, size)
+    lde = jnp.asarray(limbs.to_jax_limbs(datas[0].ldes[0]))
+    want = JPCS.get_evaluations_on_domain(None, SimpleNamespace(ldes=(lde,)), 0, size)
+    np.testing.assert_array_equal(limbs.to_jax_limbs(got), np.asarray(want))
+    coeffs = F.decode(datas[0].coeffs[0])  # (32, 3)
+    g, w = F.spec.generator, F.spec.root_of_unity(size)
+    vals = F.decode(got)
+    for k in range(size):
+        x = g * pow(w, k, p) % p
+        for c in range(3):
+            assert int(vals[k, c]) == sum(int(coeffs[j, c]) * pow(x, j, p)
+                                          for j in range(32)) % p
+    with pytest.raises(ValueError):
+        pcs.get_evaluations_on_domain(datas[0], 0, 128)
 
 
 def host_tree_root(h, mats: list) -> list:

@@ -4,6 +4,7 @@ Inputs are made with numpy from a fixed seed and go through both
 packages; results must agree bit for bit (both return canonical
 Montgomery residues, and R is the same in both).
 """
+import dataclasses
 import inspect
 
 import numpy as np
@@ -160,13 +161,13 @@ def test_point_repack_and_input_checks():
         limbs.int_to_words(f.p << 256, 8)
     with pytest.raises(ValueError):
         mont.batch_inverse(f, aff.x, axis=0)
-    # the kernels take CUDA int32 words of fields of 1, 8 or 12 words only
+    # the kernels take CUDA int32 words of fields of 1, 2, 8 or 12 words only
     with pytest.raises(ValueError):
         cuda_mont.check_cuda(f, aff.x)
     with pytest.raises(ValueError):
         cuda_mont.check_cuda(presets.BLS12_381_FQ, aff.x)
-    assert cuda_mont.SUPPORTED_W == (1, 8, 12) and cuda_mont.POINT_W == {8, 12}
-    with pytest.raises(ValueError, match="no CUDA kernel for W=2"):
+    assert cuda_mont.SUPPORTED_W == (1, 2, 8, 12) and cuda_mont.POINT_W == {8, 12}
+    with pytest.raises(ValueError, match="point kernels take W in \\[8, 12\\], not W=2"):
         cuda_mont.check_cuda(presets.GOLDILOCKS, aff.x)
     # the point kernels take a full-width p at W = 8 (secp256k1: the 64-bit
     # CIOS form) as well as a spare bit (the chains), and name the form;
@@ -177,9 +178,14 @@ def test_point_repack_and_input_checks():
     assert cuda_mont.check_cuda(presets.BLS12_381_FQ).tag == "w12_full"
     with pytest.raises(ValueError, match="one CUDA device"):
         cuda_mont.check_cuda(presets.SECP256K1_FQ, aff.x)
-    # Goldilocks (W = 2) has no kernel, for K1 or the point kernels
-    with pytest.raises(ValueError, match="no CUDA kernel for W=2"):
+    # Goldilocks (W = 2) has K1 alone (its own kernel, tag w2_full); the
+    # tensors must still be CUDA int32 words
+    assert cuda_mont.check_cuda(presets.GOLDILOCKS, any_width=True).tag == "w2_full"
+    with pytest.raises(ValueError, match="one CUDA device"):
         cuda_mont.check_cuda(presets.GOLDILOCKS, aff.x, any_width=True)
+    with pytest.raises(ValueError, match="no CUDA kernel for W=3"):
+        cuda_mont.check_cuda(dataclasses.replace(presets.GOLDILOCKS, p=(1 << 95) - 1),
+                             any_width=True)
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

@@ -214,6 +214,9 @@ def test_port_imports_without_jax():
     assert len(mods) >= 34
     # the GLV and fixed-base MSMs, whose JAX counterparts import jax.numpy
     assert {"tachyon_tpu_torch.math.glv", "tachyon_tpu_torch.math.fixed_msm"} <= set(mods)
+    # the Goldilocks slice's modules: SimpleFRI, the MLE and the sumcheck
+    assert {"tachyon_tpu_torch.crypto.simple_fri", "tachyon_tpu_torch.math.mle",
+            "tachyon_tpu_torch.crypto.sumcheck"} <= set(mods)
 
 
 def test_msm_naive_dispatch(monkeypatch):

@@ -149,8 +149,8 @@ def test_permute_hash_compress(name):
 ])
 def test_reference_goldens(name, width, want):
     """The reference's unit-test vectors (poseidon2_unittest.cc, as
-    tests/test_poseidon2.py pins them) on 0, 1, ..., t - 1; Goldilocks
-    (W = 2, no kernel yet) runs on the CPU only."""
+    tests/test_poseidon2.py pins them) on 0, 1, ..., t - 1 (Goldilocks at
+    W = 2; tests/test_torch_goldilocks.py holds it against the JAX permute)."""
     h = getattr(poseidon2, name)(CPU)
     st = h.F.encode(np.arange(width, dtype=object))[:, :, None]
     assert [int(v) for v in h.F.decode(h.permute(st)[:, :, 0])] == want
