@@ -45,7 +45,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    commit_lagrange, open, verify; a 64-coefficient commit on the naive MSM
    path; Pedersen setup(64) + commit), each step checked against host ints,
    with its time and the kernels' launch counts (K2 only in the naive
-   MSMs' tree reduces and Pedersen's last add);
+   MSMs' tree reduces and Pedersen's last add); then SHPlonk and GWC
+   (crypto/multiopen.py) over the 2^20 params on three of its polynomials
+   (p, its evaluations and their product, as coefficients) at the point
+   sets (3, 5), (3, 5), (7,): each proof verifies and refuses a tampered
+   value, with their launches (the path multiopen_2^20);
 6. Groth16: the native BN254 Groth16 prover on a square chain of 2^18
    constraints built from SEED (zk/groth16/circuits.py; domain 2^18, 2^18
    + 2 variables): setup (every G1 point of the key in one ladder launch,
@@ -137,16 +141,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    evaluations and 16 queries (verifies, refuses a tampered layer value);
    the sumcheck over Goldilocks on 3 MLEs of 2^22 entries (verifies, its
    claim is the host sum, a claim + 1 is refused);
-12. prints the card's line, the kernels' JSON line (an entry for every
+12. halo2: the Scroll halo2 pipeline (zk/plonk/halo2.py, SHPlonk) through
+   its entry points, keygen, TorchBackend(pk), create_proof
+   and Halo2Verifier.verify, each timed by a synchronized host clock, with
+   every launch count set to 0 before keygen (the SRS built inside it):
+   SimpleCircuit at k = 16 (gates, copy constraints, the permutation
+   argument, an instance column) and SimpleLookupCircuit's 2^15 rows, each
+   looked up with the log-derivative lookup, in the same 2^16 domain; each
+   proof verifies, fails with a byte flipped and (SimpleCircuit) for the
+   instance + 1, and a fresh RandomFieldGenerator repeats its bytes; the
+   backend's steps (commits, IFFTs, the quotient build) timed apart, the
+   quotient build run again under torch.profiler for its device launches
+   (the same h coefficients), with peak memory and the launches by instantiation (the paths halo2_2^16,
+   halo2_lookup_2^16); then every case of tests/fixtures/torch_halo2_jax.json
+   (the example circuits at k = 4 and 5, SHPlonk and GWC, both lookups, a
+   shuffle) on the card: pinned VK, transcript_repr and proof bytes equal
+   to the JAX HostBackend's;
+13. prints the card's line, the kernels' JSON line (an entry for every
    kernel at W = 8 on a spare bit, K1 at W = 1 and W = 2, every kernel at
    W = 12 named ``<name>_w12`` and every full-width W = 8 instantiation
    named ``<name>_w8_full``), then the result line
    {"ok": true, "device": {"platform": "gpu", ...}} last.
 
-Each main path (4, 5, 6, 7, 8's PCS and uni-STARK runs, 9, 10's and 11's
-LDE) runs with every launch count set to 0 just before it, and fails if a
-kernel of that path (MSM_PATH, KZG_PATH, GROTH16_PATH, CIRCOM_PATH,
-STARK_PATH, GOLDILOCKS_PATH) was launched no time; the launches are also
+Each main path (4, 5 and its multiopen, 6, 7, 8's PCS and uni-STARK runs,
+9, 10's and 11's LDE, 12's two circuits) runs with every launch count set
+to 0 just before it, and fails if a kernel of that path (MSM_PATH,
+KZG_PATH, GROTH16_PATH, CIRCOM_PATH, STARK_PATH, GOLDILOCKS_PATH,
+HALO2_PATH) was launched no time; the launches are also
 counted by instantiation (``cuda_mont.Form.tag``: w8_spare, w8_full,
 w12_full, w1_full, w2_full).  Phase 3 also holds, at
 the 2^18 paths' shapes (c = 14), K5 at the Groth16 path's (65, 8, 4096)
@@ -171,15 +192,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from scripts import circom_key, fri_pinned
+from scripts import circom_key, fri_pinned, make_torch_halo2_fixture
 from scripts.make_torch_stark_fixture import fib_air
-from tachyon_tpu_torch.crypto import kzg, pedersen, poseidon2, sumcheck
+from tachyon_tpu_torch.crypto import kzg, multiopen, pedersen, poseidon2, sumcheck, transcript
 from tachyon_tpu_torch.crypto.challenger import DuplexChallenger
 from tachyon_tpu_torch.crypto.simple_fri import SimpleFRI
 from tachyon_tpu_torch.crypto.fri import FRIConfig, TwoAdicFRIPCS
 from tachyon_tpu_torch.fields import extensions, limbs, presets
 from tachyon_tpu_torch.io.zkey import parse_wtns, parse_zkey
-from tachyon_tpu_torch.math import curves, fixed_msm, glv, host_ec, mle
+from tachyon_tpu_torch.math import curves, fixed_msm, glv, host_ec, mle, poly
 from tachyon_tpu_torch.math.ec import AffinePoint, PointXYZZ
 from tachyon_tpu_torch.math.msm import _blind_points, _bcast, msm, optimal_window_bits
 from tachyon_tpu_torch.math.field import PrimeField
@@ -189,6 +210,8 @@ from tachyon_tpu_torch.ops import _build, cuda_ec, cuda_mont, cuda_msm, mont
 from tachyon_tpu_torch.zk.air import expressions as air_expr
 from tachyon_tpu_torch.zk.air.stark import UniStark
 from tachyon_tpu_torch.zk.groth16 import circuits, prover, r1cs
+from tachyon_tpu_torch.zk.plonk import circuits as plonk_circuits, halo2
+from tachyon_tpu_torch.zk.plonk.halo2_device import TorchBackend
 
 LOG_N = 22      # the MSM path
 KZG_LOG_N = 20  # the KZG path
@@ -1442,6 +1465,61 @@ def phase_kzg(device):
     log(f"[kzg] bn254 n=2^{KZG_LOG_N} verified=True srs_samples={2 * KZG_SAMPLES} "
         f"verify_s={verify_s:.3f} host_checks_s={host_s:.3f} peak_mem_bytes={peak} "
         f"steps={json.dumps(steps)} launches={json.dumps(launches)}")
+    evals_mont = mont.to_mont(Fr.spec, evals_std)
+    polys = [coeffs_mont, evals_mont, Fr.mul(coeffs_mont, evals_mont)]
+    mo_launches = multiopen_check(device, params, polys, coeffs)
+    return launches, mo_launches
+
+
+MULTIOPEN_POINT_SETS = ((3, 5), (3, 5), (7,))  # tests/test_multiopen.py's
+
+
+def multiopen_check(device, params, polys, coeffs) -> dict:
+    """SHPlonk and GWC (``crypto/multiopen.py``) over the 2^20 params: the
+    three polynomials (Montgomery coefficients; the first is ``coeffs``)
+    opened at MULTIOPEN_POINT_SETS, with every launch count set to 0 just
+    before; each proof verifies and refuses the first value + 1.  Returns
+    the launches."""
+    Fr = curves.bn254_fr(device)
+    r = Fr.p
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    pro, ver = [], []
+    for po, pts in zip(polys, MULTIOPEN_POINT_SETS):
+        cm = kzg.to_int_point(kzg.commit(params, mont.mont_reduce(Fr.spec, po)))
+        vals = tuple(int(Fr.decode(poly.eval_at_fast(Fr, po, pt))) for pt in pts)
+        pro.append(multiopen.ProverOpening(po, pts))
+        ver.append(multiopen.VerifierOpening(cm, pts, vals))
+    torch.cuda.synchronize()
+    steps = {"commit_and_evals_s": round(time.perf_counter() - t0, 3)}
+    if [horner(coeffs, pt, r) for pt in MULTIOPEN_POINT_SETS[0]] != list(ver[0].values):
+        raise AssertionError("multiopen: the device evaluations of p differ from host Horner")
+    bad = list(ver)
+    bad[0] = multiopen.VerifierOpening(ver[0].commitment, ver[0].points,
+                                       ((ver[0].values[0] + 1) % r,) + ver[0].values[1:])
+    fr_spec, fq_spec = presets.BN254_FR, presets.BN254_FQ
+    for name, cls in (("shplonk", multiopen.SHPlonk), ("gwc", multiopen.GWC)):
+        scheme = cls(params)
+        w = transcript.TranscriptWriter(fr_spec, fq_spec)
+        t0 = time.perf_counter()
+        scheme.create_opening_proof(pro, w)
+        torch.cuda.synchronize()
+        steps[f"{name}_prove_s"] = round(time.perf_counter() - t0, 3)
+        proof = bytes(w.proof)
+        t0 = time.perf_counter()
+        ok = scheme.verify_opening_proof(ver, transcript.TranscriptReader(proof, fr_spec, fq_spec))
+        steps[f"{name}_verify_s"] = round(time.perf_counter() - t0, 3)
+        tampered = scheme.verify_opening_proof(
+            bad, transcript.TranscriptReader(proof, fr_spec, fq_spec))
+        if ok is not True or tampered is not False:
+            raise AssertionError(f"multiopen {name}: {ok} on the proof, {tampered} on a "
+                                 f"tampered value")
+        steps[f"{name}_proof_bytes"] = len(proof)
+    launches = read_launches(MSM_PATH)
+    log(f"[multiopen] shplonk, gwc n=2^{KZG_LOG_N} point_sets={MULTIOPEN_POINT_SETS} "
+        f"verified=True tampered_rejected=True steps={json.dumps(steps)} "
+        f"launches={json.dumps(launches)}")
     return launches
 
 
@@ -2692,6 +2770,173 @@ def phase_goldilocks(device, clock_hz, results):
     return launches
 
 
+# phase 12, the halo2 path (Scroll vendor, SHPlonk): SimpleCircuit (custom
+# gates, copy constraints, the permutation argument, an instance column) at
+# k = 16, the halo2 bench's circuit, and SimpleLookupCircuit's 2^15 rows,
+# each looked up in a 3-bit table with the log-derivative lookup, in the
+# same 2^16 domain; then every case of the JAX fixture on the card
+HALO2_LOG_N = 16
+HALO2_LOOKUP_K = 15
+HALO2_FIXTURE = Path(__file__).resolve().parent / "tests" / "fixtures" / "torch_halo2_jax.json"
+# keygen's SRS (the ladder, twice), the commitments above 128 points (the
+# sweep path) and the vanishing argument's one-point commitment (the ladder)
+HALO2_PATH = ("mont_mul", "scalar_mul_xyzz", "suffix_sweep", "bucket_add", "reduce_sweep",
+              "lane_suffix_scan", "lane_fold", "horner")
+HALO2_BACKEND_STEPS = ("commit", "commit_lagrange", "ifft", "coset_evals", "build_h_coeffs",
+                       "make_compressor")
+
+
+def timed_backend(backend, out: dict):
+    """Wrap the backend's methods to add each call's synchronized host
+    seconds, its K1 launches and its count into out[name]; the last
+    quotient build's method, arguments and result stay in
+    ``backend.quotient_call``."""
+    for name in HALO2_BACKEND_STEPS:
+        fn = getattr(backend, name)
+
+        def wrapped(*a, _fn=fn, _name=name, **kw):
+            rec = out.setdefault(_name, {"calls": 0, "s": 0.0, "k1_launches": 0})
+            k1 = KERNELS["mont_mul"][0].launches
+            t0 = time.perf_counter()
+            res = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            rec["s"] = round(rec["s"] + time.perf_counter() - t0, 4)
+            rec["k1_launches"] += KERNELS["mont_mul"][0].launches - k1
+            rec["calls"] += 1
+            if _name == "build_h_coeffs":
+                backend.quotient_call = (_fn, kw, res)
+            return res
+
+        setattr(backend, name, wrapped)
+    return backend
+
+
+def quotient_launches(backend) -> int:
+    """The device launches of the path's quotient build, run again under
+    torch.profiler (CUDA activity only); the h coefficients must repeat."""
+    fn, kw, h = backend.quotient_call
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        again = fn(**kw)
+        torch.cuda.synchronize()
+    if again != h:
+        raise AssertionError("halo2: the quotient build gives other h coefficients when rerun")
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA)
+
+
+def halo2_path(device, name: str, make, k: int, keygen_kw: dict) -> dict:
+    """One circuit through the port's entry points, with every launch count
+    set to 0 just before it: keygen (its KZG setup too),
+    TorchBackend, create_proof, each timed by a synchronized host clock;
+    then Halo2Verifier's verify, and the checks (a flipped byte and the
+    public instance + 1 refused; a fresh RandomFieldGenerator repeats the
+    bytes; the quotient build, traced again, repeats its h).  Returns its
+    numbers and launches by instantiation."""
+    steps, backend_steps = {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+
+    def lap(step):
+        nonlocal t0
+        torch.cuda.synchronize()
+        steps[step] = round(time.perf_counter() - t0, 3)
+        t0 = time.perf_counter()
+
+    pk = halo2.keygen(make(), k, device=device, **keygen_kw)
+    lap("keygen")
+    backend = timed_backend(TorchBackend(pk, device), backend_steps)
+    lap("backend")
+    circuits_ = [make()]
+    insts = [c.instance_columns() for c in circuits_]
+    proof = halo2.Halo2Prover(pk, backend=backend).create_proof(circuits_, insts).proof
+    lap("prove")
+    launches = read_launches(HALO2_PATH)
+    by_form = {tag: launches_at(tag) for tag in FORM_TAGS}
+    peak = torch.cuda.max_memory_allocated()
+    if any(by_form[tag][kn] for tag in FORM_TAGS if tag != "w8_spare" for kn in KERNELS):
+        raise AssertionError(f"{name}: a kernel of another instantiation launched: {by_form}")
+    verifier = halo2.Halo2Verifier(pk)
+    lap("verifier_init")
+    ok = verifier.verify(proof, insts)
+    lap("verify")
+
+    # checks, beyond the main path's run
+    bad = bytearray(proof)
+    bad[len(bad) // 2] ^= 1
+    flipped = verifier.verify(bytes(bad), insts)
+    wrong = None
+    if any(cols for cols in insts):
+        wrong = verifier.verify(proof, [[[(v + 1) % halo2.FR for v in col] for col in cols]
+                                        for cols in insts])
+    again = halo2.Halo2Prover(pk, rng=halo2.RandomFieldGenerator(),
+                              backend=TorchBackend(pk, device)).create_proof(circuits_, insts)
+    backend_steps["build_h_coeffs"]["device_launches"] = quotient_launches(backend)
+    lap("checks")
+    if ok is not True or flipped is not False or wrong not in (None, False):
+        raise AssertionError(f"{name}: verify gives {ok} on the proof, {flipped} with a byte "
+                             f"flipped, {wrong} for the instance + 1")
+    if again.proof != proof:
+        raise AssertionError(f"{name}: a fresh RandomFieldGenerator gives other proof bytes")
+    cs = pk.cs
+    rec = {"n": pk.n, "extended_k": pk.extended_k, "usable_rows": pk.usable_rows,
+           "advice": cs.num_advice, "fixed": len(pk.fixed_columns),
+           "lookups": len(cs.lookups), "lookup_type": cs.lookup_type,
+           "proof_bytes": len(proof), "steps_s": steps, "backend_steps": backend_steps,
+           "peak_mem_bytes": peak, "launches": launches,
+           "launches_w8_spare": by_form["w8_spare"]}
+    log(f"[halo2] {name} verified=True flipped_byte_rejected=True "
+        f"wrong_instance_rejected={wrong is False if wrong is not None else 'no instance'} "
+        f"repeat_equal=True {json.dumps(rec)}")
+    return rec
+
+
+def halo2_fixture_check(device) -> dict:
+    """Every case of the JAX fixture (keygen and TorchBackend
+    on the card): the pinned VK, transcript_repr and proof bytes equal the
+    JAX HostBackend's, and the port's verifier accepts.  Returns each
+    case's seconds."""
+    fx = json.loads(HALO2_FIXTURE.read_text())
+    secs = {}
+    for name, case in fx["cases"].items():
+        t0 = time.perf_counter()
+        circuits_ = make_torch_halo2_fixture.build(plonk_circuits, case)
+        pk = halo2.keygen(circuits_[0], case["k"], device=device,
+                          **case["keygen"])
+        insts = [[[int(v, 16) for v in col] for col in cols] for cols in case["instances"]]
+        proof = halo2.Halo2Prover(pk, backend=TorchBackend(pk, device)).create_proof(
+            circuits_, insts).proof
+        if pk.pinned_vk != case["pinned_vk"] or hex(pk.transcript_repr) != case["transcript_repr"]:
+            raise AssertionError(f"halo2 fixture {name}: the pinned VK differs from the JAX one")
+        if proof.hex() != case["proof"]:
+            raise AssertionError(f"halo2 fixture {name}: the proof bytes differ from the JAX ones")
+        if halo2.Halo2Verifier(pk).verify(proof, insts) is not True:
+            raise AssertionError(f"halo2 fixture {name}: the proof does not verify")
+        secs[name] = round(time.perf_counter() - t0, 3)
+    return secs
+
+
+def phase_halo2(device):
+    """Phase 12: SimpleCircuit at 2^HALO2_LOG_N and SimpleLookupCircuit
+    (2^HALO2_LOOKUP_K rows, log-derivative lookup) in the same domain, each
+    through ``halo2_path``; then the fixture's cases byte for byte.  Returns
+    the two paths' launches."""
+    simple = halo2_path(device, f"SimpleCircuit k={HALO2_LOG_N}", plonk_circuits.SimpleCircuit,
+                        HALO2_LOG_N, {})
+    lookup = halo2_path(device, f"SimpleLookupCircuit(k={HALO2_LOOKUP_K}) log_derivative "
+                        f"k={HALO2_LOG_N}",
+                        lambda: plonk_circuits.SimpleLookupCircuit(k=HALO2_LOOKUP_K),
+                        HALO2_LOG_N, {"lookup_type": "log_derivative"})
+    torch.cuda.empty_cache()
+    secs = halo2_fixture_check(device)
+    log(f"[halo2-fixture] {len(secs)} cases byte-equal to the JAX HostBackend's "
+        f"(pinned VK, transcript_repr, proof) and verified; seconds {json.dumps(secs)}")
+    return {f"halo2_2^{HALO2_LOG_N}": simple["launches"],
+            f"halo2_lookup_2^{HALO2_LOG_N}": lookup["launches"]}
+
+
 def ptxas_registers(nvcc_log: str) -> dict:
     """Registers and spill-store bytes of each kernel from ptxas's -v
     lines, by the kernel's unmangled name and its template arguments
@@ -2802,7 +3047,7 @@ def main() -> int:
 
     phase("kernels", phase_kernels, base_x, base_y, clock_hz, results)
     msm_launches = phase("msm", phase_slice)
-    kzg_launches = phase("kzg", phase_kzg)
+    kzg_launches, multiopen_launches = phase("kzg", phase_kzg)
     groth16_launches = phase("groth16", phase_groth16)
     circom_launches = phase("circom", phase_circom)
     stark_launches = phase("stark", phase_stark, clock_hz, results)
@@ -2810,6 +3055,7 @@ def main() -> int:
                                    results12)
     secp_extra, secp_paths = phase("secp256k1", phase_secp256k1, clock_hz, results_full)
     gl_launches = phase("goldilocks", phase_goldilocks, clock_hz, results)
+    halo2_launches = phase("halo2", phase_halo2)
     bls_path = f"groth16_bls12_381_2^{BLS_LOG_N}"
     log(f"[phases] seconds {json.dumps(phase_s)}, since the build started "
         f"{time.perf_counter() - t0:.1f} s")
@@ -2845,7 +3091,8 @@ def main() -> int:
              f"groth16_2^{GROTH16_LOG_N}": groth16_launches,
              f"circom_2^{CIRCOM_LOG_N}": circom_launches,
              f"stark_2^{STARK_LOG_N}": stark_launches,
-             f"goldilocks_2^{GL_LDE[0]}": gl_launches}
+             f"goldilocks_2^{GL_LDE[0]}": gl_launches,
+             f"multiopen_2^{KZG_LOG_N}": multiopen_launches, **halo2_launches}
     # an entry for every kernel at W = 8 on a spare bit (K1 at W = 1 and 2 too),
     # with every main path's launches, then one named <name>_w12 for each
     # W = 12 instantiation, checked and timed at the BLS12-381 path's shapes,

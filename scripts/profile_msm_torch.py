@@ -3,7 +3,8 @@
 
     python3 scripts/profile_msm_torch.py [--log-n 22] [--kzg-log-n 20]
         [--groth16-log-n 18] [--circom-log-n 18] [--stark-log-n 20]
-        [--bls12-log-n 17] [--secp-log-n 22] [--goldilocks-log-n 20] [--out DIR]
+        [--bls12-log-n 17] [--secp-log-n 22] [--goldilocks-log-n 20]
+        [--halo2-log-n 16] [--out DIR]
 
 Builds the kernels, then traces, each after one warm-up run (a size of 0
 skips its path):
@@ -27,7 +28,12 @@ skips its path):
 - the Goldilocks path of chip_smoke.py phase 11: coset_lde_batch of a
   2^goldilocks_log_n x 100 matrix at log_blowup 3 and Poseidon2
   goldilocks_w8 on 2^(goldilocks_log_n + 2) states (K1 at W = 2; device
-  activity only).
+  activity only);
+- the halo2 path of chip_smoke.py phase 12: one create_proof of
+  SimpleCircuit and one of SimpleLookupCircuit (2^(halo2_log_n - 1) rows,
+  log-derivative lookup) in a 2^halo2_log_n domain on TorchBackend, after
+  keygen (device activity only: the prover's host loops and
+  the eager quotient build's launches).
 For each it prints the device time by kernel name and the device busy and
 idle shares of the traced window, and writes the Chrome trace to
 <out>/<name>_trace.json; the proves' G2 MSM launches millions of small
@@ -54,6 +60,8 @@ from tachyon_tpu_torch.math import curves  # noqa: E402
 from tachyon_tpu_torch.math.msm import msm  # noqa: E402
 from tachyon_tpu_torch.ops import _build  # noqa: E402
 from tachyon_tpu_torch.zk.groth16 import circuits, prover, r1cs  # noqa: E402
+from tachyon_tpu_torch.zk.plonk import circuits as plonk_circuits, halo2  # noqa: E402
+from tachyon_tpu_torch.zk.plonk.halo2_device import TorchBackend  # noqa: E402
 
 
 def device_events(prof) -> list:
@@ -106,6 +114,7 @@ def main() -> int:
     ap.add_argument("--bls12-log-n", type=int, default=17)
     ap.add_argument("--secp-log-n", type=int, default=22)
     ap.add_argument("--goldilocks-log-n", type=int, default=20)
+    ap.add_argument("--halo2-log-n", type=int, default=16)
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -208,6 +217,22 @@ def main() -> int:
         print(f"[groth16-bls12] setup + Groth16(...) {time.perf_counter() - t0:.2f} s")
         profile(f"groth16_bls12_381_prove_2^{args.bls12_log_n}",
                 lambda: g16.prove(public, private, r=rr - 5, s=rr - 7), out, host=False)
+    if args.halo2_log_n:
+        k = args.halo2_log_n
+        cases = (("halo2_prove", plonk_circuits.SimpleCircuit, {}),
+                 ("halo2_lookup_prove", lambda: plonk_circuits.SimpleLookupCircuit(k=k - 1),
+                  {"lookup_type": "log_derivative"}))
+        for name, make, kw in cases:
+            t0 = time.perf_counter()
+            pk = halo2.keygen(make(), k, device=device, **kw)
+            backend = TorchBackend(pk, device)
+            circ = [make()]
+            insts = [c.instance_columns() for c in circ]
+            print(f"[halo2] {name} keygen + TorchBackend "
+                  f"{time.perf_counter() - t0:.2f} s")
+            profile(f"{name}_2^{k}",
+                    lambda: halo2.Halo2Prover(pk, backend=backend).create_proof(circ, insts),
+                    out, host=False)
     return 0
 
 

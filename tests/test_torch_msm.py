@@ -190,13 +190,14 @@ def test_cpu_tensors_launch_no_kernel():
 
 
 SCRIPTS = ["chip_smoke", "scripts.circom_key", "scripts.fri_pinned",
-           "scripts.make_torch_stark_fixture"]
+           "scripts.make_torch_stark_fixture", "scripts.make_torch_halo2_fixture"]
 
 
 def test_port_imports_without_jax():
     """Every port module, chip_smoke and the scripts it imports (the circom
-    key writer, the pinned FRI transcript, the STARK fixture's AIR) import
-    with jax and the JAX package (tachyon_tpu) made unimportable."""
+    key writer, the pinned FRI transcript, the STARK fixture's AIR, the
+    halo2 fixture's cases) import with jax and the JAX package
+    (tachyon_tpu) made unimportable."""
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "tachyon_tpu_torch").rglob("*.py"))
@@ -217,6 +218,12 @@ def test_port_imports_without_jax():
     # the Goldilocks slice's modules: SimpleFRI, the MLE and the sumcheck
     assert {"tachyon_tpu_torch.crypto.simple_fri", "tachyon_tpu_torch.math.mle",
             "tachyon_tpu_torch.crypto.sumcheck"} <= set(mods)
+    # the halo2 slice's fourteen modules
+    assert {f"tachyon_tpu_torch.{m}" for m in (
+        "base.log", "crypto.rng", "crypto.transcript", "crypto.poseidon", "crypto.multiopen",
+        "zk.plonk.expressions", "zk.plonk.constraint_system", "zk.plonk.selector",
+        "zk.plonk.layout", "zk.plonk.lookup", "zk.plonk.stringifier", "zk.plonk.halo2",
+        "zk.plonk.halo2_device", "zk.plonk.circuits")} <= set(mods)
 
 
 def test_msm_naive_dispatch(monkeypatch):
