@@ -56,10 +56,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    every G2 point in one generic ladder over Fq2), Groth16(...) with its
    device-point uploads, prove at fixed r and s (the witness map, the four
    G1 MSMs and the G2 MSM each timed by CUDA events), verify; the proof
-   verifies with the host pairing and fails for the public output + 1, a
-   second prove at the same r and s gives the same tuple, a wrong witness's
-   proof fails, 64 sampled a_query and b2_query points are on their
-   curves, and the G2 MSM alone at n = 2^18 (256 exact multiples of the G2
+   verifies with the host pairing and fails for the public output + 1; on
+   a chain of 2^12 constraints (GROTH16_CHECK_LOG_N) a second prove at the
+   same r and s gives the same tuple and a wrong witness's proof fails; 64
+   sampled a_query and b2_query points are on their curves, and the G2 MSM
+   alone at n = 2^18 (256 exact multiples of the G2
    generator, tiled) equals the host point; with peak memory and the
    kernels' launch counts;
 7. circom: the circom Groth16 pipeline at a 2^18 domain.  A snarkjs-layout
@@ -68,11 +69,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    by scripts/circom_key.py (timed apart: not the user's path); then
    parse_zkey, parse_wtns, CircomGroth16Prover(...), prove at fixed r and s
    (the witness map and each MSM timed by CUDA events) and verify.  The
-   proof verifies and fails for the output + 1, and the deterministic proof
-   verifies (scripts/profile_msm_torch.py traces this prove for the
-   device's idle share); at 2^12, on bits_chain (linear combinations of 1,
-   3, 5 and 254 terms, as a circom bit decomposition has), a repeat gives
-   the same tuple, a wrong witness's proof fails and the tuple equals the
+   proof verifies and fails for the output + 1 (scripts/profile_msm_torch.py
+   traces this prove for the device's idle share); at 2^12, on bits_chain
+   (linear combinations of 1, 3, 5 and 254 terms, as a circom bit
+   decomposition has), a repeat gives the same tuple, a wrong witness's
+   proof fails, the deterministic proof verifies and the tuple equals the
    native prover's on the same setup; with peak memory and launch counts;
 8. stark: the BabyBear STARK path.  K1 at one word (W = 1) on baby_bear at
    (1, 2^24) and with broadcast operands, word for word against its twin
@@ -157,17 +158,43 @@ Phases, in order; any failure raises and the script exits non-zero:
    (the example circuits at k = 4 and 5, SHPlonk and GWC, both lookups, a
    shuffle) on the card: pinned VK, transcript_repr and proof bytes equal
    to the JAX HostBackend's;
-13. prints the card's line, the kernels' JSON line (an entry for every
+13. surfaces: the port's C ABI and CLI and the standalone PLONK prover.
+   ``make -C tachyon_tpu_torch/c`` builds libtachyon_tpu_c.so and
+   test_capi, and ``test_capi cuda`` runs every step in its embedded
+   interpreter (a subprocess); then, through ctypes in this process after
+   tachyon_tpu_init("cuda"): the MSM at 2^20 points (tiled multiples of G,
+   seed 55) equal to the host-exact point, the marshalling timed apart from
+   the MSM; the FFT at 2^20 equal to Radix2Domain.fft and inverted back;
+   Poseidon2 against the host sponge; the SP1 commit of a 2^20 x 100
+   BabyBear matrix at log_blowup 2 equal to TwoAdicFRIPCS.commit's root in
+   this process, and prove_verify on 2^16 x 16 with SP1's 100 queries and
+   16 grinding bits; groth16_prove (no_zk) on the circom mul fixture equal
+   to ``cli.py prove --no-zk``'s JSON; halo2_prove of a JSON circuit at
+   k = 16 (2^16 - 64 rows of mul gates, copies to an instance column;
+   self-verified) equal to ``cli.py prove-halo2 --device cuda``'s hex (a
+   subprocess); one 2^16 ABI MSM dumped (TACHYON_MSM_DUMP_PATH) and
+   replayed by io/replay.py to the same, host-exact, point; ``cli.py prove
+   --trace-path`` writing a chrome trace with the
+   ProofGeneration span and K1's kernel; then the standalone PLONK prover
+   (zk/plonk/prover.py) at 2^16: unsafe_setup, keygen, prove and verify
+   with SHPlonk and GWC on test_plonk.py's gate over every usable row,
+   1024 chained copies and an instance, 5 blinding rows; each proof
+   refuses a flipped byte and the instance + 1; with peak memory and
+   launches (the paths abi_msm_2^20, abi_sp1_commit_2^20, abi_halo2_2^16,
+   plonk_2^16).  Phase 7 also holds the mmap parser (io/native) against
+   the Python parse on its 2^18 key, both timed;
+14. prints the card's line, the kernels' JSON line (an entry for every
    kernel at W = 8 on a spare bit, K1 at W = 1 and W = 2, every kernel at
    W = 12 named ``<name>_w12`` and every full-width W = 8 instantiation
    named ``<name>_w8_full``), then the result line
    {"ok": true, "device": {"platform": "gpu", ...}} last.
 
 Each main path (4, 5 and its multiopen, 6, 7, 8's PCS and uni-STARK runs,
-9, 10's and 11's LDE, 12's two circuits) runs with every launch count set
+9, 10's and 11's LDE, 12's two circuits, 13's ABI MSM, SP1 commit, halo2
+and PLONK) runs with every launch count set
 to 0 just before it, and fails if a kernel of that path (MSM_PATH,
 KZG_PATH, GROTH16_PATH, CIRCOM_PATH, STARK_PATH, GOLDILOCKS_PATH,
-HALO2_PATH) was launched no time; the launches are also
+HALO2_PATH, PLONK_PATH) was launched no time; the launches are also
 counted by instantiation (``cuda_mont.Form.tag``: w8_spare, w8_full,
 w12_full, w1_full, w2_full).  Phase 3 also holds, at
 the 2^18 paths' shapes (c = 14), K5 at the Groth16 path's (65, 8, 4096)
@@ -179,9 +206,12 @@ nothing of the JAX package: the port is torch-only.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import json
+import os
 import re
+import struct
 import subprocess
 import sys
 import tempfile
@@ -194,13 +224,16 @@ import torch
 
 from scripts import circom_key, fri_pinned, make_torch_halo2_fixture
 from scripts.make_torch_stark_fixture import fib_air
+from tachyon_tpu_torch import cli
 from tachyon_tpu_torch.crypto import kzg, multiopen, pedersen, poseidon2, sumcheck, transcript
 from tachyon_tpu_torch.crypto.challenger import DuplexChallenger
 from tachyon_tpu_torch.crypto.simple_fri import SimpleFRI
 from tachyon_tpu_torch.crypto.fri import FRIConfig, TwoAdicFRIPCS
 from tachyon_tpu_torch.fields import extensions, limbs, presets
+from tachyon_tpu_torch.io import replay
 from tachyon_tpu_torch.io.zkey import parse_wtns, parse_zkey
 from tachyon_tpu_torch.math import curves, fixed_msm, glv, host_ec, mle, poly
+from tachyon_tpu_torch.math import msm as msm_mod
 from tachyon_tpu_torch.math.ec import AffinePoint, PointXYZZ
 from tachyon_tpu_torch.math.msm import _blind_points, _bcast, msm, optimal_window_bits
 from tachyon_tpu_torch.math.field import PrimeField
@@ -211,6 +244,8 @@ from tachyon_tpu_torch.zk.air import expressions as air_expr
 from tachyon_tpu_torch.zk.air.stark import UniStark
 from tachyon_tpu_torch.zk.groth16 import circuits, prover, r1cs
 from tachyon_tpu_torch.zk.plonk import circuits as plonk_circuits, halo2
+from tachyon_tpu_torch.zk.plonk import expressions as plonk_expr, prover as plonk
+from tachyon_tpu_torch.zk.plonk.constraint_system import ConstraintSystem
 from tachyon_tpu_torch.zk.plonk.halo2_device import TorchBackend
 
 LOG_N = 22      # the MSM path
@@ -218,6 +253,7 @@ KZG_LOG_N = 20  # the KZG path
 KZG_SAMPLES = 64  # SRS points checked against host ints, of each kind
 GROTH16_LOG_N = 18  # the Groth16 path: 2^18 constraints, a domain of 2^18
 GROTH16_SAMPLES = 64  # a_query and b2_query points checked on their curves
+GROTH16_CHECK_LOG_N = 12  # phase 6's repeat and wrong-witness checks
 CIRCOM_LOG_N = 18  # the circom path: a domain of 2^18 (square chain + public-input constraints)
 CIRCOM_CHECK_LOG_N = 12  # the circom checks against a repeat, a wrong witness, the native prover
 # the STARK path: the reference's benchmark/fri row at 2^20 (BabyBear,
@@ -1575,6 +1611,32 @@ def g2_msm_check(device) -> dict:
     return {"n": n, "ms": round(ms, 4), "wall_s": round(wall_s, 4), "host_expected_s": round(host_s, 4)}
 
 
+def groth16_checks(family: str, device, seed: int) -> float:
+    """Phase 6's checks beyond the main path, on a square chain of
+    2^GROTH16_CHECK_LOG_N constraints (the main path's prove takes 30-40 s
+    at 2^18, nearly all of it the host-bound G2 MSM): a second prove at the
+    same r and s gives the same tuple, and a wrong witness's proof fails.
+    Returns their seconds."""
+    R = r1cs.CURVE_FAMILIES[family]["pairing"].R
+    rng = np.random.default_rng(seed)
+    x0, r, s, *secrets = (int.from_bytes(rng.bytes(40), "little") % (R - 1) + 1
+                          for _ in range(8))
+    t0 = time.perf_counter()
+    circuit, public, private = circuits.square_chain(1 << GROTH16_CHECK_LOG_N, x0, r=R)
+    g16 = r1cs.Groth16(r1cs.setup(circuit, family, rng=iter(secrets).__next__, device=device),
+                       device)
+    proof = g16.prove(public, private, r=r, s=s)
+    if g16.verify(proof, public) is not True or g16.prove(public, private, r=r, s=s) != proof:
+        raise AssertionError(f"{family} Groth16 at 2^{GROTH16_CHECK_LOG_N}: the proof does not "
+                             "verify, or a second prove at the same r and s gives another tuple")
+    bad = list(private)
+    bad[0] = (bad[0] + 1) % R  # x_0 * x_0 = x_1 no longer holds
+    if g16.verify(g16.prove(public, bad, r=r, s=s), public) is not False:
+        raise AssertionError(f"{family} Groth16 at 2^{GROTH16_CHECK_LOG_N}: a wrong witness's "
+                             "proof verifies")
+    return time.perf_counter() - t0
+
+
 def phase_groth16(device):
     """The native Groth16 prover at 2^18 constraints through the port's
     entry points (setup, Groth16, prove at fixed r and s, verify), each
@@ -1625,12 +1687,6 @@ def phase_groth16(device):
     t0 = time.perf_counter()
     if ok is not True or g16.verify(proof, [(public[0] + 1) % R]) is not False:
         raise AssertionError("Groth16: the proof does not verify, or verifies for output + 1")
-    if g16.prove(public, private, r=r, s=s) != proof:
-        raise AssertionError("Groth16: a second prove at the same r and s gives another tuple")
-    bad = list(private)
-    bad[0] = (bad[0] + 1) % R  # x_0 * x_0 = x_1 no longer holds
-    if g16.verify(g16.prove(public, bad, r=r, s=s), public) is not False:
-        raise AssertionError("Groth16: a wrong witness's proof verifies")
     nv = circuit.num_vars
     idx = sorted(set(rng.choice(nv, GROTH16_SAMPLES - 2, replace=False).tolist()) | {0, nv - 1})
     for curve, query in ((g16.g1, pp.a_query), (g16.g2, pp.b2_query)):
@@ -1639,8 +1695,10 @@ def phase_groth16(device):
             raise AssertionError(f"Groth16 setup: sampled {curve.name} query points are off "
                                  f"the curve")
     checks_s = time.perf_counter() - t0
+    small_s = groth16_checks("bn254", device, SEED + 11)
     g2_alone = g2_msm_check(device)
     log(f"[groth16] bn254 constraints=2^{GROTH16_LOG_N} domain={pp.n} vars={nv} verified=True "
+        f"repeat_equal_and_wrong_witness_rejected_2^{GROTH16_CHECK_LOG_N}_s={small_s:.3f} "
         f"circuit_s={circuit_s:.3f} checks_s={checks_s:.3f} peak_mem_bytes={peak} "
         f"steps={json.dumps(steps)} prove_steps={json.dumps(prove_steps)} "
         f"g2_msm={json.dumps(g2_alone)} launches={json.dumps(launches)}")
@@ -1709,6 +1767,9 @@ def phase_circom(device):
             ok = pr.verify(proof, public)
         launches = read_launches(CIRCOM_PATH)
         peak = torch.cuda.max_memory_allocated()
+        mmap = mmap_check(zpath, wpath, device)
+    log(f"[surfaces-mmap] the mmap parse of the 2^{CIRCOM_LOG_N} key ({key_bytes} bytes) and "
+        f"witness equals the Python parse: {json.dumps(mmap)}")
     if launches["horner"] != CIRCOM_G1_MSMS or launches["add_xyzz"] != 0 \
             or launches["scalar_mul_xyzz"] != 0:
         raise AssertionError(f"the circom path launched Horner {launches['horner']} times, K2 "
@@ -1718,11 +1779,6 @@ def phase_circom(device):
         raise AssertionError("circom: the parsed key or witness is not the written one")
     if ok is not True or pr.verify(proof, [(public[0] + 1) % R]) is not False:
         raise AssertionError("circom: the proof does not verify, or verifies for output + 1")
-    t0 = time.perf_counter()
-    det = pr.prove(wtns, deterministic=True)
-    det_s = time.perf_counter() - t0
-    if pr.verify(det, public) is not True:
-        raise AssertionError("circom: the deterministic proof does not verify")
     del pr, zkey, wtns
     torch.cuda.empty_cache()
 
@@ -1742,6 +1798,9 @@ def phase_circom(device):
     bad[:, 2] = limbs.from_ints([priv2[0] + 1], w2.shape[0])[:, 0]  # b_0 + 1: the bit sum breaks
     if small.verify(small.prove(bad, r=r2, s=s2), pub2) is not False:
         raise AssertionError(f"circom at 2^{CIRCOM_CHECK_LOG_N}: a wrong witness's proof verifies")
+    if small.verify(small.prove(w2, deterministic=True), pub2) is not True:
+        raise AssertionError(f"circom at 2^{CIRCOM_CHECK_LOG_N}: the deterministic proof does "
+                             "not verify")
     native = r1cs.Groth16(pp, device).prove(pub2, priv2, r=r2, s=s2)
     if tuple(native) != tuple(got):
         raise AssertionError(f"circom at 2^{CIRCOM_CHECK_LOG_N}: the tuple differs from the "
@@ -1751,7 +1810,6 @@ def phase_circom(device):
         f"verified=True writer_s={writer_s:.3f} key_bytes={key_bytes} "
         f"checks_2^{CIRCOM_CHECK_LOG_N}_s={checks_s:.3f} peak_mem_bytes={peak} "
         f"steps={json.dumps(steps)} prove_steps={json.dumps(prove_steps)} "
-        f"deterministic_prove_s={det_s:.4f} "
         f"launches={json.dumps(launches)}")
     return launches
 
@@ -2937,6 +2995,504 @@ def phase_halo2(device):
             f"halo2_lookup_2^{HALO2_LOG_N}": lookup["launches"]}
 
 
+# --- phase 13: the surfaces (the C ABI, the CLI, replay, the profiler) and
+# the standalone PLONK prover
+
+C_DIR = Path(__file__).resolve().parent / "tachyon_tpu_torch" / "c"
+CIRCOM_MUL = Path(__file__).resolve().parent / "tests" / "fixtures" / "torch_circom_mul"
+ABI_MSM_LOG_N = 20  # a halo2 k = 20 commitment's size
+ABI_FFT_LOG_N = 20
+ABI_HALO2_K = 16  # phase 12's domain
+ABI_HALO2_ROWS = (1 << ABI_HALO2_K) - 64  # mul-gate rows, below the blinding rows
+ABI_HALO2_INSTANCES = 16  # c cells copied to the instance column
+REPLAY_LOG_N = 16
+SP1_COMMIT = (20, 100, 2)  # log2 rows, columns, log_blowup: the reference's fri row
+SP1_PROVE = (16, 16, 1, 100, 16)  # log2 rows, columns, log_blowup, SP1's queries and grind
+PLONK_LOG_N = 16
+PLONK_BLINDING = 5
+PLONK_CHAIN = 1024  # rows whose c is copied to the next row's a
+# the SRS ladder, the commitments (the sweep path), every column op (K1)
+PLONK_PATH = ("mont_mul", "scalar_mul_xyzz", "suffix_sweep", "bucket_add", "reduce_sweep",
+              "lane_suffix_scan", "lane_fold", "horner")
+
+
+def subprocess_env() -> dict:
+    """The environment of a subprocess that runs the port: the repository and
+    this interpreter's package directories on PYTHONPATH (an embedded
+    interpreter starts from its own prefix, not from a virtual environment)."""
+    site = [p for p in sys.path if p.endswith("-packages") and Path(p).is_dir()]
+    root = str(Path(__file__).resolve().parent)
+    return {**os.environ, "PYTHONPATH": os.pathsep.join([root, *site])}
+
+
+def build_capi() -> tuple[Path, float]:
+    """``make -C tachyon_tpu_torch/c`` (the library and test_capi, into
+    tachyon_tpu_torch/_build/c); raises with make's output."""
+    t0 = time.perf_counter()
+    r = subprocess.run(["make", "-C", str(C_DIR)], capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"the C library did not build ({r.returncode}):\n{r.stdout}{r.stderr}")
+    return C_DIR.parent / "_build" / "c", time.perf_counter() - t0
+
+
+def load_capi(lib_path: Path):
+    """The library through ctypes, each entry declared as the rs crate does."""
+    lib = ctypes.CDLL(str(lib_path))
+    u8p, size, i, u32 = (ctypes.POINTER(ctypes.c_uint8), ctypes.c_size_t, ctypes.c_int,
+                         ctypes.c_uint32)
+    cpp = ctypes.POINTER(ctypes.c_char_p)
+    for name, args in (
+            ("tachyon_tpu_init", [ctypes.c_char_p]),
+            ("tachyon_tpu_bn254_g1_msm", [u8p, u8p, size, u8p]),
+            ("tachyon_tpu_bn254_fft", [u8p, size, i, u8p]),
+            ("tachyon_tpu_bn254_poseidon2_hash", [u8p, size, u8p]),
+            ("tachyon_tpu_bn254_groth16_prove", [ctypes.c_char_p, ctypes.c_char_p, i, i, cpp,
+                                                 cpp]),
+            ("tachyon_tpu_halo2_bn254_prove", [ctypes.c_char_p, cpp]),
+            ("tachyon_tpu_sp1_baby_bear_fri_commit", [u32, u8p, size, u8p]),
+            ("tachyon_tpu_sp1_baby_bear_fri_prove_verify", [u32, u32, u32, u8p, size, u8p])):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = i
+    lib.tachyon_tpu_last_error.restype = ctypes.c_char_p
+    lib.tachyon_tpu_free_string.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def abi_call(lib, name: str, *args) -> None:
+    rc = getattr(lib, name)(*args)
+    if rc != 0:
+        raise AssertionError(f"{name} returned {rc}: {lib.tachyon_tpu_last_error().decode()}")
+
+
+def abi_bytes(data: bytes):
+    return (ctypes.c_uint8 * len(data)).from_buffer_copy(data)
+
+
+def abi_strings(lib, name: str, count: int, *args) -> list[str]:
+    """Call the entry ``name``, which returns ``count`` strings through
+    char** out-parameters after ``args``."""
+    outs = [ctypes.c_char_p() for _ in range(count)]
+    abi_call(lib, name, *args, *(ctypes.byref(o) for o in outs))
+    vals = [o.value.decode() for o in outs]
+    for o in outs:
+        lib.tachyon_tpu_free_string(o)
+    return vals
+
+
+def abi_msm_inputs(curve, n: int, seed: int):
+    """tiled_inputs as the ABI's bytes: n bases (x || y, 32-byte LE standard
+    form) and n scalars, and the host-exact point."""
+    _, _, sc, ks, expected = tiled_inputs(curve, n, seed)
+    G = (int(curve.gen_x), int(curve.gen_y))
+    base = b"".join(x.to_bytes(32, "little") + y.to_bytes(32, "little")
+                    for x, y in (host_ec.scalar_mul(G, int(k), 0, curve.F.p) for k in ks))
+    scalars = limbs.from_jax_limbs(sc).numpy().view("<u4").T.tobytes()
+    return base * (n // len(ks)), scalars, sc, ks, expected
+
+
+def point_bytes(pt) -> bytes:
+    x, y = pt if pt else (0, 0)
+    return x.to_bytes(32, "little") + y.to_bytes(32, "little")
+
+
+def abi_msm_check(lib, curve, bases: bytes, scalars: bytes, n: int, expected) -> dict:
+    """tachyon_tpu_bn254_g1_msm on n points, the MSM timed apart from the
+    marshalling (the bridge's ``msm`` wrapped by a synchronized clock)."""
+    inner = {}
+    orig = msm_mod.msm
+
+    def timed_msm(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig(*a, **kw)
+        torch.cuda.synchronize()
+        inner["msm_s"] = time.perf_counter() - t
+        return out
+
+    out = (ctypes.c_uint8 * 64)()
+    b, s = abi_bytes(bases), abi_bytes(scalars)
+    msm_mod.msm = timed_msm
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        abi_call(lib, "tachyon_tpu_bn254_g1_msm", b, s, n, out)
+        total = time.perf_counter() - t0
+    finally:
+        msm_mod.msm = orig
+    if bytes(out) != point_bytes(expected):
+        raise AssertionError(f"ABI msm at n = {n}: not the host-exact point")
+    return {"n": n, "call_s": round(total, 4), "msm_s": round(inner["msm_s"], 4),
+            "marshal_s": round(total - inner["msm_s"], 4)}
+
+
+def abi_fft_check(lib, device, rng) -> dict:
+    n = 1 << ABI_FFT_LOG_N
+    words = rng.integers(0, 1 << 32, size=(8, n), dtype=np.uint32)
+    words[7] &= 0x0FFFFFFF  # below r
+    data = words.T.tobytes()
+    Fr = curves.bn254_fr(device)
+    want = mont.mont_reduce(Fr.spec, Radix2Domain(Fr, n).fft(mont.to_mont(
+        Fr.spec, torch.from_numpy(words.view(np.int32)).to(device))))
+    fwd, back = (ctypes.c_uint8 * (32 * n))(), (ctypes.c_uint8 * (32 * n))()
+    t0 = time.perf_counter()
+    abi_call(lib, "tachyon_tpu_bn254_fft", abi_bytes(data), n, 0, fwd)
+    fwd_s = time.perf_counter() - t0
+    if bytes(fwd) != want.cpu().numpy().view("<u4").T.tobytes():
+        raise AssertionError("ABI fft at 2^20: not Radix2Domain.fft's values")
+    abi_call(lib, "tachyon_tpu_bn254_fft", fwd, n, 1, back)
+    if bytes(back) != data:
+        raise AssertionError("ABI fft at 2^20: the inverse does not give the input back")
+    return {"n": n, "fft_s": round(fwd_s, 4)}
+
+
+def abi_poseidon2_check(lib, device) -> dict:
+    h = poseidon2.bn254_w3(device)
+    vals = [pow(3, 50 + i, h.F.p) for i in range(5)]
+    st = [0, 0, 0]
+    for off in range(0, len(vals), 2):  # the ABI's sponge: rate 2, squeeze state[1]
+        for i, v in enumerate(vals[off:off + 2]):
+            st[i + 1] = (st[i + 1] + v) % h.F.p
+        st = h.permute_host(st)
+    out = (ctypes.c_uint8 * 32)()
+    abi_call(lib, "tachyon_tpu_bn254_poseidon2_hash",
+             abi_bytes(b"".join(v.to_bytes(32, "little") for v in vals)), len(vals), out)
+    if bytes(out) != st[1].to_bytes(32, "little"):
+        raise AssertionError("ABI poseidon2: not the host sponge's digest")
+    return {"inputs": len(vals)}
+
+
+def sp1_blob(mats: list[np.ndarray]) -> bytes:
+    head = [np.array([len(mats)], dtype="<u4")]
+    for m in mats:
+        head += [np.array(m.shape, dtype="<u4"), m.reshape(-1).astype("<u4")]
+    return np.concatenate(head).tobytes()
+
+
+def abi_sp1_check(lib, device, rng) -> dict:
+    """The commit entry on the reference's fri row against the port's
+    in-process TwoAdicFRIPCS commit; prove_verify on SP1's FRI settings."""
+    log_rows, cols, blowup = SP1_COMMIT
+    h = poseidon2.baby_bear_p3_w16(device)
+    p = h.F.p
+    m = rng.integers(0, p, size=(1 << log_rows, cols), dtype=np.uint32)
+    pcs = TwoAdicFRIPCS(h.F, extensions.baby_bear4(device), h, FRIConfig(log_blowup=blowup))
+
+    def in_process():
+        data = pcs.commit([h.F.encode_canonical(torch.from_numpy(m.view(np.int32)))])
+        return struct.pack("<8I", *(int(v) for v in h.F.decode(data.root()).reshape(-1)))
+
+    in_process()  # the warm-up: the LDE's twiddles, Poseidon2's constants
+    blob = sp1_blob([m])
+    buf = abi_bytes(blob)
+    root = (ctypes.c_uint8 * 32)()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    abi_call(lib, "tachyon_tpu_sp1_baby_bear_fri_commit", blowup, buf, len(blob), root)
+    commit_s = time.perf_counter() - t0
+    launches = read_launches(STARK_PATH)
+    t0 = time.perf_counter()
+    want = in_process()
+    inproc_s = time.perf_counter() - t0
+    if bytes(root) != want:
+        raise AssertionError("ABI sp1 commit: the root differs from TwoAdicFRIPCS.commit's")
+    del pcs, buf
+    log_rows2, cols2, blowup2, queries, pow_bits = SP1_PROVE
+    m2 = rng.integers(0, p, size=(1 << log_rows2, cols2), dtype=np.uint32)
+    blob2 = sp1_blob([m2])
+    root_c, root_pv = (ctypes.c_uint8 * 32)(), (ctypes.c_uint8 * 32)()
+    abi_call(lib, "tachyon_tpu_sp1_baby_bear_fri_commit", blowup2, abi_bytes(blob2),
+             len(blob2), root_c)
+    t0 = time.perf_counter()
+    abi_call(lib, "tachyon_tpu_sp1_baby_bear_fri_prove_verify", blowup2, queries, pow_bits,
+             abi_bytes(blob2), len(blob2), root_pv)
+    pv_s = time.perf_counter() - t0
+    if bytes(root_c) != bytes(root_pv):
+        raise AssertionError("ABI sp1: prove_verify's root differs from the commit's")
+    return {"commit": {"shape": [1 << log_rows, cols], "log_blowup": blowup,
+                       "abi_s": round(commit_s, 3), "in_process_s": round(inproc_s, 3)},
+            "prove_verify": {"shape": [1 << log_rows2, cols2], "log_blowup": blowup2,
+                             "queries": queries, "pow_bits": pow_bits, "s": round(pv_s, 3)},
+            "launches": launches}
+
+
+def abi_groth16_check(lib, tmp: Path, device) -> dict:
+    """groth16_prove (no_zk, verify) on the circom mul fixture against
+    ``cli.py prove --no-zk``'s files."""
+    zkey, wtns = f"{CIRCOM_MUL}.zkey", f"{CIRCOM_MUL}.wtns"
+    t0 = time.perf_counter()
+    proof, public = abi_strings(lib, "tachyon_tpu_bn254_groth16_prove", 2, zkey.encode(),
+                               wtns.encode(), 1, 1)
+    abi_s = time.perf_counter() - t0
+    pp, pub = tmp / "proof.json", tmp / "public.json"
+    if cli.main(["prove", zkey, wtns, "--no-zk", "--verify", "--device", device.type,
+                 "--proof", str(pp), "--public", str(pub)]) != 0:
+        raise AssertionError("cli.py prove --no-zk failed on the circom mul fixture")
+    if json.loads(proof) != json.loads(pp.read_text()) or \
+            json.loads(public) != json.loads(pub.read_text()):
+        raise AssertionError("ABI groth16: the JSON differs from cli.py prove --no-zk's")
+    return {"abi_s": round(abi_s, 3)}
+
+
+def halo2_mul_json(k: int, rows: int, seed: int) -> str:
+    """A JSON circuit of ``api.h``'s schema at 2^k: a mul gate
+    s * (a * b - c) on ``rows`` rows, the first ABI_HALO2_INSTANCES c cells
+    copied to an instance column."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(1, 1 << 32, rows, dtype=np.uint64)
+    b = rng.integers(1, 1 << 32, rows, dtype=np.uint64)
+    c = [int(x) * int(y) for x, y in zip(a, b)]
+    k_inst = ABI_HALO2_INSTANCES
+    return json.dumps({
+        "k": k, "num_advice": 3, "num_fixed": 0, "num_instance": 1,
+        "equality": [["advice", 2], ["instance", 0]], "selectors": ["simple"],
+        "gates": [[["prod", ["selector", 0],
+                    ["sum", ["prod", ["advice", 0, 0], ["advice", 1, 0]],
+                     ["neg", ["advice", 2, 0]]]]]],
+        "assignments": {"advice": [a.tolist(), b.tolist(), c], "selectors": [[1] * rows],
+                        "copies": [[["advice", 2, i], ["instance", 0, i]] for i in range(k_inst)]},
+        "instances": [c[:k_inst]],
+    })
+
+
+def abi_halo2_check(lib, tmp: Path, device) -> dict:
+    """halo2_prove through the ABI at k = 16 (self-verified inside), and
+    ``cli.py prove-halo2 --device cuda`` on the same file as a subprocess:
+    the same hex."""
+    spec = halo2_mul_json(ABI_HALO2_K, ABI_HALO2_ROWS, SEED + 15)
+    path = tmp / "halo2_k16.json"
+    path.write_text(spec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    (hexproof,) = abi_strings(lib, "tachyon_tpu_halo2_bn254_prove", 1, spec.encode())
+    abi_s = time.perf_counter() - t0
+    launches = read_launches(HALO2_PATH)
+    peak = torch.cuda.max_memory_allocated()
+    out = tmp / "halo2_k16.hex"
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "tachyon_tpu_torch.cli", "prove-halo2", str(path),
+                        "--proof", str(out), "--device", device.type], capture_output=True,
+                       text=True,
+                       env=subprocess_env(), timeout=600)
+    cli_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"cli.py prove-halo2 failed ({r.returncode}): {r.stderr[-2000:]}")
+    if out.read_text().strip() != hexproof:
+        raise AssertionError("cli.py prove-halo2 wrote another hex than the ABI's")
+    return {"k": ABI_HALO2_K, "rows": ABI_HALO2_ROWS, "proof_bytes": len(hexproof) // 2,
+            "abi_s": round(abi_s, 3), "cli_subprocess_s": round(cli_s, 3),
+            "peak_mem_bytes": peak, "launches": launches}
+
+
+def replay_check(lib, curve, bases: bytes, scalars: bytes, sc, ks, tmp: Path) -> dict:
+    """One ABI MSM of 2^REPLAY_LOG_N points with TACHYON_MSM_DUMP_PATH set,
+    its dump replayed through ``io/replay.py``: the same point, the host's."""
+    n = 1 << REPLAY_LOG_N
+    dump_dir = tmp / "msm_dumps"
+    os.environ["TACHYON_MSM_DUMP_PATH"] = str(dump_dir)
+    out = (ctypes.c_uint8 * 64)()
+    try:
+        abi_call(lib, "tachyon_tpu_bn254_g1_msm", abi_bytes(bases[:64 * n]),
+                 abi_bytes(scalars[:32 * n]), n, out)
+    finally:
+        del os.environ["TACHYON_MSM_DUMP_PATH"]
+    dumps = sorted(dump_dir.glob("msm_*.npz"))
+    if len(dumps) != 1:
+        raise AssertionError(f"replay: {len(dumps)} dumps of one MSM")
+    t0 = time.perf_counter()
+    pt = replay.replay_msm(str(dumps[0]), curve.device)
+    replay_s = time.perf_counter() - t0
+    expected = host_ec.msm_tiled((int(curve.gen_x), int(curve.gen_y)), ks, sc[:, :n], 0,
+                                 curve.F.p, curve.SF.p)
+    if point_bytes(pt) != bytes(out) or pt != expected:
+        raise AssertionError("replay: the replayed MSM differs from the ABI's or the host's")
+    return {"n": n, "dump_bytes": dumps[0].stat().st_size, "replay_s": round(replay_s, 3)}
+
+
+def trace_check(tmp: Path, device) -> dict:
+    """``cli.py prove --trace-path`` on the circom mul fixture: the chrome
+    trace holds the ProofGeneration span and the port's kernels."""
+    trace = tmp / "trace.json"
+    t0 = time.perf_counter()
+    if cli.main(["prove", f"{CIRCOM_MUL}.zkey", f"{CIRCOM_MUL}.wtns", "--no-zk", "--verify",
+                 "--device", device.type, "--proof", str(tmp / "p.json"),
+                 "--public", str(tmp / "q.json"), "--trace-path", str(trace)]) != 0:
+        raise AssertionError("cli.py prove --trace-path failed")
+    names = Counter(e.get("name", "") for e in json.loads(trace.read_text())["traceEvents"])
+    kernels = {k: sum(c for nm, c in names.items() if k in nm)
+               for k in ("mont_mul_kernel", "scalar_mul", "add_xyzz")}
+    if "ProofGeneration/groth16_prove" not in names or (
+            device.type == "cuda" and not kernels["mont_mul_kernel"]):
+        raise AssertionError(f"the trace lacks the groth16_prove span or K1's kernel: {kernels}")
+    return {"s": round(time.perf_counter() - t0, 3), "trace_bytes": trace.stat().st_size,
+            "events": sum(names.values()), "kernel_events": kernels}
+
+
+def plonk_circuit(n: int, seed: int):
+    """test_plonk.py's gate q_m (a b - c) on every usable row of 2^log_n,
+    PLONK_CHAIN copies c_i = a_{i+1}, the chain's last c copied to the
+    instance column, PLONK_BLINDING blinding rows; an honest witness."""
+    R = presets.BN254_FR.p
+    cs = ConstraintSystem()
+    cs.blinding_factors = PLONK_BLINDING
+    qm = cs.fixed_column()
+    a, b, c = cs.advice_column(), cs.advice_column(), cs.advice_column()
+    inst = cs.instance_column()
+    for col in (a, c, inst):
+        cs.enable_equality(col)
+    cs.create_gate("mul", [plonk_expr.Product(plonk_expr.Fixed(qm.index), plonk_expr.Sum(
+        plonk_expr.Product(plonk_expr.Advice(a.index), plonk_expr.Advice(b.index)),
+        plonk_expr.Negated(plonk_expr.Advice(c.index))))])
+    u = cs.usable_rows(n)
+    rng = np.random.default_rng(seed)
+    av = [int(v) for v in rng.integers(1, 1 << 62, u)]
+    bv = [int(v) for v in rng.integers(1, 1 << 62, u)]
+    cv = [0] * u
+    for i in range(u):
+        if 0 < i <= PLONK_CHAIN:
+            av[i] = cv[i - 1]
+        cv[i] = av[i] * bv[i] % R
+    for i in range(PLONK_CHAIN):
+        cs.copy((c, i), (a, i + 1))
+    cs.copy((c, PLONK_CHAIN), (inst, 0))
+    pad = [0] * (n - u)
+    return (cs, [[1] * u + pad], [av + pad, bv + pad, cv + pad],
+            [[cv[PLONK_CHAIN]] + [0] * (n - 1)])
+
+
+def plonk_path(device) -> dict:
+    """The standalone PLONK prover (zk/plonk/prover.py) at 2^PLONK_LOG_N with
+    every launch count set to 0 before the SRS: unsafe_setup, keygen, prove
+    (SHPlonk), verify; then GWC; each proof refuses a flipped byte and the
+    instance + 1."""
+    n = 1 << PLONK_LOG_N
+    cs, fixed, advice, instance = plonk_circuit(n, SEED + 16)
+    steps = {}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        steps[name] = round(time.perf_counter() - t0, 3)
+        t0 = time.perf_counter()
+
+    params = kzg.unsafe_setup(n, 0x5EED + SEED, device)
+    lap("setup")
+    pk = plonk.keygen(params, cs, n, fixed)
+    lap("keygen")
+    proof = plonk.PlonkProver(params, pk).prove(advice, instance)
+    lap("prove_shplonk")
+    launches = read_launches(PLONK_PATH)
+    peak = torch.cuda.max_memory_allocated()
+    verdicts = {}
+    for pcs in ("shplonk", "gwc"):
+        if pcs == "gwc":
+            proof = plonk.PlonkProver(params, pk, pcs="gwc").prove(advice, instance)
+            lap("prove_gwc")
+        ver = plonk.PlonkVerifier(params, pk, pcs=pcs)
+        ok = ver.verify(proof, instance)
+        lap(f"verify_{pcs}")
+        bad = bytearray(proof)
+        bad[len(bad) // 2] ^= 1
+        wrong = [[(instance[0][0] + 1) % presets.BN254_FR.p] + instance[0][1:]]
+        verdicts[pcs] = (ok, ver.verify(bytes(bad), instance), ver.verify(proof, wrong))
+        lap(f"checks_{pcs}")
+        if verdicts[pcs] != (True, False, False):
+            raise AssertionError(f"PLONK {pcs} at 2^{PLONK_LOG_N}: verify gives {verdicts[pcs]} "
+                                 "(proof, flipped byte, instance + 1)")
+    rec = {"n": n, "blinding_factors": PLONK_BLINDING, "copies": len(cs.copies),
+           "proof_bytes": len(proof), "steps_s": steps, "peak_mem_bytes": peak,
+           "launches": launches}
+    log(f"[plonk] 2^{PLONK_LOG_N} verified=True flipped_byte_rejected=True "
+        f"wrong_instance_rejected=True {json.dumps(rec)}")
+    return rec
+
+
+def phase_surfaces(device):
+    """Phase 13: the port's C library built and driven (test_capi cuda as a
+    subprocess; in this process through ctypes: the MSM at 2^20, the FFT at
+    2^20, Poseidon2, the SP1 commit on the fri row and prove_verify, circom
+    Groth16 against the CLI, halo2 at k = 16 against the CLI's subprocess),
+    replay, the CLI's trace, and the PLONK prover at 2^16.  Returns the
+    paths' launches."""
+    lib_dir, build_s = build_capi()
+    # test_capi runs in its own process beside this one's ABI calls (the
+    # script's time limit); its seconds include the overlap
+    t_capi = time.perf_counter()
+    capi = subprocess.Popen([str(lib_dir / "test_capi"), device.type], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=subprocess_env())
+    try:
+        lib = load_capi(lib_dir / "libtachyon_tpu_c.so")
+        abi_call(lib, "tachyon_tpu_init", device.type.encode())
+        curve = curves.bn254_g1(device)
+        rng = np.random.default_rng(SEED + 13)
+        rec = {}
+        n = 1 << ABI_MSM_LOG_N
+        bases, scalars, sc, ks, expected = abi_msm_inputs(curve, n, SEED + 13)
+        reset_launches()
+        rec["msm"] = abi_msm_check(lib, curve, bases, scalars, n, expected)
+        paths = {f"abi_msm_2^{ABI_MSM_LOG_N}": read_launches(MSM_PATH)}
+        rec["msm_again"] = abi_msm_check(lib, curve, bases, scalars, n, expected)
+        rec["fft"] = abi_fft_check(lib, device, rng)
+        rec["poseidon2"] = abi_poseidon2_check(lib, device)
+        sp1 = abi_sp1_check(lib, device, rng)
+        paths[f"abi_sp1_commit_2^{SP1_COMMIT[0]}"] = sp1.pop("launches")
+        rec["sp1"] = sp1
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            rec["groth16"] = abi_groth16_check(lib, tmp, device)
+            halo = abi_halo2_check(lib, tmp, device)
+            paths[f"abi_halo2_2^{ABI_HALO2_K}"] = halo.pop("launches")
+            rec["halo2"] = halo
+            rec["replay"] = replay_check(lib, curve, bases, scalars, sc, ks, tmp)
+            rec["trace"] = trace_check(tmp, device)
+        out, err = capi.communicate(timeout=600)
+    finally:
+        if capi.poll() is None:  # an ABI check failed: stop test_capi too
+            capi.kill()
+            capi.wait()
+    capi_s = time.perf_counter() - t_capi
+    if capi.returncode != 0 or not out.strip().endswith("OK"):
+        raise AssertionError(f"test_capi cuda failed ({capi.returncode}): {out}{err}")
+    log(f"[surfaces] C library built in {build_s:.1f} s; test_capi cuda (every step, embedded "
+        f"interpreter) OK in {capi_s:.1f} s beside the calls below: {out.splitlines()[0]}")
+    log(f"[surfaces] verified=True {json.dumps(rec)}")
+    del bases, scalars
+    torch.cuda.empty_cache()
+    paths[f"plonk_2^{PLONK_LOG_N}"] = plonk_path(device)["launches"]
+    return paths
+
+
+def mmap_check(zpath: Path, wpath: Path, device) -> dict:
+    """The mmap parser (io/native) against the pure-Python parse of the same
+    key and witness: every field equal; both timed."""
+    t = {}
+    parsed = {}
+    for native in (True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parsed[native] = (parse_zkey(str(zpath), device, native=native),
+                          parse_wtns(str(wpath), native=native))
+        torch.cuda.synchronize()
+        t["native_s" if native else "python_s"] = round(time.perf_counter() - t0, 3)
+    (zn, (mn, wn)), (zp, (mp, wp)) = parsed[True], parsed[False]
+    for f in dataclasses.fields(zn):
+        a, b = getattr(zn, f.name), getattr(zp, f.name)
+        same = torch.equal(a, b) if isinstance(a, torch.Tensor) else (
+            np.array_equal(a, b) if isinstance(a, np.ndarray) else a == b)
+        if not same:
+            raise AssertionError(f"mmap parse: {f.name} differs from the Python parse")
+    if mn != mp or not torch.equal(wn, wp):
+        raise AssertionError("mmap parse: the witness differs from the Python parse")
+    return t
+
+
 def ptxas_registers(nvcc_log: str) -> dict:
     """Registers and spill-store bytes of each kernel from ptxas's -v
     lines, by the kernel's unmangled name and its template arguments
@@ -3056,6 +3612,7 @@ def main() -> int:
     secp_extra, secp_paths = phase("secp256k1", phase_secp256k1, clock_hz, results_full)
     gl_launches = phase("goldilocks", phase_goldilocks, clock_hz, results)
     halo2_launches = phase("halo2", phase_halo2)
+    surface_launches = phase("surfaces", phase_surfaces)
     bls_path = f"groth16_bls12_381_2^{BLS_LOG_N}"
     log(f"[phases] seconds {json.dumps(phase_s)}, since the build started "
         f"{time.perf_counter() - t0:.1f} s")
@@ -3092,7 +3649,8 @@ def main() -> int:
              f"circom_2^{CIRCOM_LOG_N}": circom_launches,
              f"stark_2^{STARK_LOG_N}": stark_launches,
              f"goldilocks_2^{GL_LDE[0]}": gl_launches,
-             f"multiopen_2^{KZG_LOG_N}": multiopen_launches, **halo2_launches}
+             f"multiopen_2^{KZG_LOG_N}": multiopen_launches, **halo2_launches,
+             **surface_launches}
     # an entry for every kernel at W = 8 on a spare bit (K1 at W = 1 and 2 too),
     # with every main path's launches, then one named <name>_w12 for each
     # W = 12 instantiation, checked and timed at the BLS12-381 path's shapes,

@@ -4,7 +4,8 @@
     python3 scripts/profile_msm_torch.py [--log-n 22] [--kzg-log-n 20]
         [--groth16-log-n 18] [--circom-log-n 18] [--stark-log-n 20]
         [--bls12-log-n 17] [--secp-log-n 22] [--goldilocks-log-n 20]
-        [--halo2-log-n 16] [--out DIR]
+        [--halo2-log-n 16] [--abi-log-n 20] [--abi-halo2-k 16]
+        [--plonk-log-n 16] [--out DIR]
 
 Builds the kernels, then traces, each after one warm-up run (a size of 0
 skips its path):
@@ -33,7 +34,15 @@ skips its path):
   SimpleCircuit and one of SimpleLookupCircuit (2^(halo2_log_n - 1) rows,
   log-derivative lookup) in a 2^halo2_log_n domain on TorchBackend, after
   keygen (device activity only: the prover's host loops and
-  the eager quotient build's launches).
+  the eager quotient build's launches);
+- the C ABI's bridge (``tachyon_tpu_torch/c/bridge.py``, the code the
+  library's entries run) in this process: ``msm_g1`` on chip_smoke.py
+  phase 13's 2^abi_log_n points, bytes in and out (the marshalling with
+  the MSM), and ``halo2_prove`` of phase 13's JSON circuit at
+  k = abi_halo2_k, keygen and self-verify included (device activity only);
+- the standalone PLONK prover (``zk/plonk/prover.py``): one SHPlonk
+  ``prove`` of phase 13's circuit at 2^plonk_log_n after its setup and
+  keygen (device activity only).
 For each it prints the device time by kernel name and the device busy and
 idle shares of the traced window, and writes the Chrome trace to
 <out>/<name>_trace.json; the proves' G2 MSM launches millions of small
@@ -115,6 +124,9 @@ def main() -> int:
     ap.add_argument("--secp-log-n", type=int, default=22)
     ap.add_argument("--goldilocks-log-n", type=int, default=20)
     ap.add_argument("--halo2-log-n", type=int, default=16)
+    ap.add_argument("--abi-log-n", type=int, default=20)
+    ap.add_argument("--abi-halo2-k", type=int, default=16)
+    ap.add_argument("--plonk-log-n", type=int, default=16)
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -233,6 +245,31 @@ def main() -> int:
             profile(f"{name}_2^{k}",
                     lambda: halo2.Halo2Prover(pk, backend=backend).create_proof(circ, insts),
                     out, host=False)
+    if args.abi_log_n or args.abi_halo2_k:
+        from tachyon_tpu_torch.c import bridge
+
+        bridge.init("cuda")
+    if args.abi_log_n:
+        n = 1 << args.abi_log_n
+        bases, scalars, _, _, _ = chip_smoke.abi_msm_inputs(curves.bn254_g1(device), n,
+                                                            chip_smoke.SEED + 13)
+        profile(f"abi_msm_2^{args.abi_log_n}", lambda: bridge.msm_g1(bases, scalars, n), out)
+        del bases, scalars
+    if args.abi_halo2_k:
+        k = args.abi_halo2_k
+        spec = chip_smoke.halo2_mul_json(k, (1 << k) - 64, chip_smoke.SEED + 15)
+        profile(f"abi_halo2_prove_2^{k}", lambda: bridge.halo2_prove(spec), out, host=False)
+    if args.plonk_log_n:
+        from tachyon_tpu_torch.zk.plonk import prover as plonk
+
+        n = 1 << args.plonk_log_n
+        cs, fixed, advice, instance = chip_smoke.plonk_circuit(n, chip_smoke.SEED + 16)
+        t0 = time.perf_counter()
+        params = kzg.unsafe_setup(n, 0x5EED + chip_smoke.SEED, device)
+        pk = plonk.keygen(params, cs, n, fixed)
+        print(f"[plonk] setup + keygen {time.perf_counter() - t0:.2f} s")
+        profile(f"plonk_prove_2^{args.plonk_log_n}",
+                lambda: plonk.PlonkProver(params, pk).prove(advice, instance), out, host=False)
     return 0
 
 

@@ -1,14 +1,21 @@
-"""Groth16 prover command line of the port: the ``prove`` subcommand of
-``tachyon_tpu/cli.py`` (the reference's vendors/circom/prover_main.cc
-flags: zkey, wtns, proof, public, --curve, --no_zk, --verify,
--n/--num_runs, --trace_path), with snarkjs-compatible proof.json and
-public.json.
+"""Prover command line of the port: the ``prove`` and ``prove-halo2``
+subcommands of ``tachyon_tpu/cli.py``.
+
+``prove`` takes the reference's vendors/circom/prover_main.cc flags (zkey,
+wtns, proof, public, --curve, --no_zk, --verify, -n/--num_runs,
+--trace_path) and writes snarkjs-compatible proof.json and public.json;
+``--trace-path`` writes a ``base/profiler.py`` chrome trace with the
+``groth16_prove`` and ``groth16_verify`` spans.  ``prove-halo2`` proves a
+JSON circuit (the schema of ``c/api.h``'s ``tachyon_tpu_halo2_bn254_prove``)
+through ``c/bridge.py`` and writes the hex proof; the proof is verified
+before it is written.
 
     python -m tachyon_tpu_torch.cli prove circuit.zkey circuit.wtns \
         --proof proof.json --public public.json --verify
+    python -m tachyon_tpu_torch.cli prove-halo2 circuit.json --proof proof.hex
 
-It runs on the card; ``--device cpu`` runs the plain PyTorch path.  A
-failed verification exits 1.
+Both run on the card; ``--device cpu`` runs the plain PyTorch path.  A
+failed verification exits 1 (``prove``) or raises (``prove-halo2``).
 """
 from __future__ import annotations
 
@@ -51,16 +58,14 @@ def _sync(device: torch.device) -> None:
 
 
 def cmd_prove(args) -> int:
+    from tachyon_tpu_torch.base import profiler
     from tachyon_tpu_torch.io.zkey import parse_wtns, parse_zkey
     from tachyon_tpu_torch.zk.groth16.prover import CircomGroth16Prover, public_inputs
 
     device = torch.device(args.device)
     prof = None
     if args.trace_path:
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if device.type == "cuda":
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        prof = torch.profiler.profile(activities=acts)
+        prof = profiler.Profiler(args.trace_path, device)
         prof.start()
 
     def timed(label):
@@ -79,14 +84,15 @@ def cmd_prove(args) -> int:
     prover = CircomGroth16Prover(zkey, device)
     proof = None
     for i in range(args.num_runs):
-        with timed(f"prove[{i}]"), torch.profiler.record_function("groth16_prove"):
+        with timed(f"prove[{i}]"), profiler.trace_event(
+                profiler.CATEGORY_PROOF_GENERATION, "groth16_prove"):
             # prove() samples fresh CSPRNG r/s unless deterministic
             proof = prover.prove(wtns, deterministic=args.no_zk)
 
     pub = public_inputs(zkey, wtns)
     if args.verify:
         t0 = time.perf_counter()
-        with torch.profiler.record_function("groth16_verify"):
+        with profiler.trace_event(profiler.CATEGORY_PROOF_VERIFICATION, "groth16_verify"):
             ok = prover.verify(proof, pub)
         print(f"verify: {time.perf_counter() - t0:.3f}s -> {ok}", file=sys.stderr)
         if not ok:
@@ -99,9 +105,20 @@ def cmd_prove(args) -> int:
         json.dump([str(v) for v in pub], f, indent=1)
     if prof:
         prof.stop()
-        prof.export_chrome_trace(args.trace_path)
         print(f"trace written to {args.trace_path}", file=sys.stderr)
     print(f"proof -> {args.proof}, public -> {args.public}", file=sys.stderr)
+    return 0
+
+
+def cmd_prove_halo2(args) -> int:
+    from tachyon_tpu_torch.c import bridge
+
+    bridge.init(args.device)
+    with open(args.circuit) as f:
+        hexproof = bridge.halo2_prove(f.read())
+    with open(args.proof, "w") as f:
+        f.write(hexproof + "\n")
+    print(f"proof: {args.proof} ({len(hexproof) // 2} bytes, verified)")
     return 0
 
 
@@ -122,11 +139,24 @@ def main(argv=None) -> int:
                     help="verify after proving (recommended)")
     pp.add_argument("-n", "--num-runs", type=int, default=1)
     pp.add_argument("--trace-path", default=None,
-                    help="write a torch.profiler chrome trace (JSON) to this file")
+                    help="write a torch.profiler chrome trace (JSON) to this file "
+                         "(base/profiler.py)")
     pp.add_argument("--device", default="cuda",
                     help="torch device of the prover (default: the card; cpu runs "
                          "the plain PyTorch path)")
     pp.set_defaults(fn=cmd_prove)
+
+    hp = sub.add_parser(
+        "prove-halo2",
+        help="create a halo2 bit-compatible proof from a JSON circuit description "
+             "(schema: tachyon_tpu_torch/c/api.h tachyon_tpu_halo2_bn254_prove)")
+    hp.add_argument("circuit", help="path to the circuit JSON")
+    hp.add_argument("--proof", default="halo2_proof.hex",
+                    help="output file for the hex-encoded proof bytes")
+    hp.add_argument("--device", default="cuda",
+                    help="torch device of the prover (default: the card; cpu runs "
+                         "the plain PyTorch path)")
+    hp.set_defaults(fn=cmd_prove_halo2)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -10,8 +10,13 @@ They are word for word the JAX package's 16-bit limb arrays, repacked
 The zkey's coefficient values carry one Montgomery factor too many
 (v R^2 mod r).  The JAX package divides each by R in a Python loop; that is
 a Montgomery reduction, so the port runs one ``mont.mont_reduce`` over all
-of them (one K1 launch on the card).  The C++ mmap fast path of the JAX
-package (``io/native``) is not ported: ``parse_wtns`` is its pure-Python path.
+of them (one K1 launch on the card).
+
+Both parsers read through the C++ mmap parser of ``io/native`` by default
+(built at first use; a failed build raises); ``native=False`` reads the
+file into memory and parses it in Python, the oracle of the native path.
+The two share one parse over a source (``_BytesSource``, ``_NativeSource``)
+that finds sections and gathers words.
 """
 from __future__ import annotations
 
@@ -95,11 +100,74 @@ class ZKeyData:
     coeff_values: torch.Tensor
 
 
-def _points(data: bytes, off: int, count: int, n8: int, coords: int) -> torch.Tensor:
+class _BytesSource:
+    """The whole file in memory, parsed in Python."""
+
+    def __init__(self, path: str, magic: bytes):
+        with open(path, "rb") as f:
+            self.data = f.read()
+        _, self.sections = _read_sections(self.data, magic)
+
+    def section(self, typ: int) -> int:
+        return self.sections[typ][0][0]
+
+    def bytes(self, off: int, n: int) -> bytes:
+        return self.data[off:off + n]
+
+    def _records(self, off: int, n: int, stride: int) -> np.ndarray:
+        return np.frombuffer(self.data, dtype=np.uint8, count=n * stride,
+                             offset=off).reshape(n, stride)
+
+    def words(self, off: int, n: int, W: int, stride: int | None = None,
+              value_off: int = 0) -> np.ndarray:
+        raw = self._records(off, n, stride or 4 * W)
+        return bytes_to_words(raw[:, value_off:value_off + 4 * W], 4 * W)
+
+    def u32s(self, off: int, n: int, stride: int, field_off: int) -> np.ndarray:
+        raw = self._records(off, n, stride)
+        return raw[:, field_off:field_off + 4].copy().view("<u4").reshape(-1)
+
+    def close(self):
+        pass
+
+
+class _NativeSource:
+    """The file mapped by the C++ parser (``io/native``)."""
+
+    def __init__(self, path: str, magic: bytes):
+        from tachyon_tpu_torch.io.native import NativeFile
+
+        self.f = NativeFile(path)
+        head = self.f.read_bytes(0, 4) if self.f.size >= 4 else b""
+        if head != magic:
+            self.f.close()
+            raise ValueError(f"bad magic {head!r}, expected {magic!r}")
+        self.bytes = self.f.read_bytes
+        self.words = self.f.gather_words
+        self.u32s = self.f.gather_u32
+
+    def section(self, typ: int) -> int:
+        off, _ = self.f.find_section(typ)
+        if off is None:
+            raise ValueError(f"section {typ} is missing or runs past the end of the file")
+        return off
+
+    def close(self):
+        self.f.close()
+
+
+def _open(path: str, magic: bytes, native: bool):
+    return (_NativeSource if native else _BytesSource)(path, magic)
+
+
+def _u32(src, off: int) -> int:
+    return struct.unpack("<I", src.bytes(off, 4))[0]
+
+
+def _points(src, off: int, count: int, n8: int, coords: int) -> torch.Tensor:
     """``count`` points of ``coords`` coordinates at ``off`` -> (W, count, coords)."""
     W = n8 // 4
-    raw = np.frombuffer(data, dtype="<u4", count=count * coords * W, offset=off)
-    return _word_tensor(raw.reshape(count, coords, W).transpose(2, 0, 1))
+    return _word_tensor(src.words(off, count * coords, W).reshape(W, count, coords))
 
 
 def _scalar_spec(r: int):
@@ -109,53 +177,52 @@ def _scalar_spec(r: int):
     raise ValueError(f"no field preset has the zkey's scalar modulus {r}")
 
 
-def parse_zkey(path: str, device=torch.device("cuda")) -> ZKeyData:
+def parse_zkey(path: str, device=torch.device("cuda"), native: bool = True) -> ZKeyData:
     """Read a Groth16 zkey; the coefficient values are normalised on
-    ``device`` (the card unless the caller passes another)."""
-    with open(path, "rb") as f:
-        data = f.read()
-    version, sections = _read_sections(data, ZKEY_MAGIC)
+    ``device`` (the card unless the caller passes another).  ``native``
+    selects the mmap parser (default) or the pure-Python one."""
+    src = _open(path, ZKEY_MAGIC, native)
+    try:
+        return _parse_zkey(src, device)
+    finally:
+        src.close()
 
-    off, _ = sections[S_HEADER][0]
-    (prover_type,) = struct.unpack_from("<I", data, off)
+
+def _parse_zkey(src, device) -> ZKeyData:
+    prover_type = _u32(src, src.section(S_HEADER))
     if prover_type != 1:
         raise ValueError(f"prover type {prover_type}: only Groth16 zkeys are supported")
 
-    off, _ = sections[S_HEADER_GROTH][0]
-    (n8q,) = struct.unpack_from("<I", data, off)
-    q = int.from_bytes(data[off + 4 : off + 4 + n8q], "little")
+    off = src.section(S_HEADER_GROTH)
+    n8q = _u32(src, off)
+    q = int.from_bytes(src.bytes(off + 4, n8q), "little")
     off2 = off + 4 + n8q
-    (n8r,) = struct.unpack_from("<I", data, off2)
-    r = int.from_bytes(data[off2 + 4 : off2 + 4 + n8r], "little")
+    n8r = _u32(src, off2)
+    r = int.from_bytes(src.bytes(off2 + 4, n8r), "little")
     off3 = off2 + 4 + n8r
-    num_vars, num_public, domain_size = struct.unpack_from("<III", data, off3)
+    num_vars, num_public, domain_size = struct.unpack("<III", src.bytes(off3, 12))
     off4 = off3 + 12
     # vk points: alpha1, beta1, beta2, gamma2, delta1, delta2
     vk = {}
     for name, coords in (("alpha_g1", 2), ("beta_g1", 2), ("beta_g2", 4),
                          ("gamma_g2", 4), ("delta_g1", 2), ("delta_g2", 4)):
-        vk[name] = _points(data, off4, 1, n8q, coords)[:, 0]
+        vk[name] = _points(src, off4, 1, n8q, coords)[:, 0]
         off4 += coords * n8q
 
-    off, _ = sections[S_IC][0]
-    ic = _points(data, off, num_public + 1, n8q, 2)
+    ic = _points(src, src.section(S_IC), num_public + 1, n8q, 2)
 
-    off, _ = sections[S_COEFFS][0]
-    (num_coeffs,) = struct.unpack_from("<I", data, off)
+    off = src.section(S_COEFFS)
+    num_coeffs = _u32(src, off)
     entry = 12 + n8r
-    raw = np.frombuffer(
-        data, dtype=np.uint8, count=num_coeffs * entry, offset=off + 4
-    ).reshape(num_coeffs, entry)
-    coeff_matrix = raw[:, 0:4].copy().view("<u4").reshape(-1)
-    coeff_constraint = raw[:, 4:8].copy().view("<u4").reshape(-1)
-    coeff_signal = raw[:, 8:12].copy().view("<u4").reshape(-1)
+    coeff_matrix, coeff_constraint, coeff_signal = (
+        src.u32s(off + 4, num_coeffs, entry, k) for k in (0, 4, 8))
     # v R^2 -> v R: one Montgomery reduction over all values (the JAX
     # package's per-value v * R^-1 mod r)
-    stored = _word_tensor(bytes_to_words(raw[:, 12:], n8r)).to(device)
+    stored = _word_tensor(src.words(off + 4, num_coeffs, n8r // 4, entry, 12)).to(device)
     coeff_values = mont.mont_reduce(_scalar_spec(r), stored)
 
     def query(sid, count, coords):
-        return _points(data, sections[sid][0][0], count, n8q, coords)
+        return _points(src, src.section(sid), count, n8q, coords)
 
     return ZKeyData(
         n8q=n8q, n8r=n8r, q=q, r=r,
@@ -171,15 +238,15 @@ def parse_zkey(path: str, device=torch.device("cuda")) -> ZKeyData:
     )
 
 
-def parse_wtns(path: str) -> tuple[int, torch.Tensor]:
-    """(modulus, (W, n) int32 standard-form words on the host)."""
-    with open(path, "rb") as f:
-        data = f.read()
-    version, sections = _read_sections(data, WTNS_MAGIC)
-    off, _ = sections[1][0]
-    (n8,) = struct.unpack_from("<I", data, off)
-    modulus = int.from_bytes(data[off + 4 : off + 4 + n8], "little")
-    (num,) = struct.unpack_from("<I", data, off + 4 + n8)
-    off, _ = sections[2][0]
-    raw = np.frombuffer(data, dtype=np.uint8, count=num * n8, offset=off)
-    return modulus, _word_tensor(bytes_to_words(raw.reshape(num, n8), n8))
+def parse_wtns(path: str, native: bool = True) -> tuple[int, torch.Tensor]:
+    """(modulus, (W, n) int32 standard-form words on the host); ``native``
+    selects the mmap parser (default) or the pure-Python one."""
+    src = _open(path, WTNS_MAGIC, native)
+    try:
+        off = src.section(1)
+        n8 = _u32(src, off)
+        modulus = int.from_bytes(src.bytes(off + 4, n8), "little")
+        num = _u32(src, off + 4 + n8)
+        return modulus, _word_tensor(src.words(src.section(2), num, n8 // 4))
+    finally:
+        src.close()

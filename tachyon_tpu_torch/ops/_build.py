@@ -12,6 +12,8 @@ and the objects are linked into one shared library with a plain C interface
 The library lands in ``tachyon_tpu_torch/_build/<key>/``, where the key
 hashes the sources and the flags, so a rerun on unchanged sources loads the
 library it built before.  Only sources in this repository are compiled.
+``host_build`` does the same for a host library built by ``g++`` (the mmap
+parser of ``io/native.py``), into ``_build/<tag>-<key>/``.
 """
 from __future__ import annotations
 
@@ -129,6 +131,36 @@ def library() -> ctypes.CDLL:
         fn.argtypes = []
         fn.restype = ctypes.c_int
     return lib
+
+
+def host_build(tag: str, sources: list[Path], command, product: str) -> Path:
+    """Build a host artifact (the mmap parser's ``g++`` library) at first use.
+
+    ``command(out_dir)`` is the argument list that writes ``product`` into
+    ``out_dir``; it runs in a directory of its own, which is then renamed to
+    ``_build/<tag>-<key>/``, the key hashing the sources and the command, so
+    that processes that build at once do not see each other's half-written
+    files.  Raises with the command's output when it fails."""
+    h = hashlib.sha256(" ".join(command(Path("OUT"))).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    out_dir = BUILD / f"{tag}-{h.hexdigest()[:16]}"
+    if not (out_dir / product).exists():
+        tmp = BUILD / f".{tag}.{os.getpid()}"
+        shutil.rmtree(tmp, ignore_errors=True)
+        tmp.mkdir(parents=True)
+        r = subprocess.run(command(tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                           text=True)
+        if r.returncode != 0 or not (tmp / product).exists():
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise RuntimeError(f"{tag} build failed ({r.returncode}): "
+                               f"{' '.join(command(tmp))}\n{r.stdout}")
+        try:
+            os.rename(tmp, out_dir)
+        except OSError:  # another process renamed its build there first
+            shutil.rmtree(tmp, ignore_errors=True)
+    return out_dir / product
 
 
 def nvcc_log() -> str:

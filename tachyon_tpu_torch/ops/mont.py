@@ -231,29 +231,39 @@ def inv(f: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     return pow_const(f, a, f.p - 2)
 
 
-def batch_inverse(f: FieldSpec, a: torch.Tensor, axis: int = -1) -> torch.Tensor:
-    """Montgomery-trick batch inverse along a batch axis (zeros -> zeros):
-    exclusive prefix products, one Fermat inverse, a suffix pass."""
+def scan(op, a: torch.Tensor, axis: int = 1) -> torch.Tensor:
+    """Inclusive scan of the associative ``op`` (a field multiply or add)
+    along batch ``axis``: log2(n) steps, each ``op`` over whole columns
+    (Hillis-Steele).  The field ops' outputs are canonical, so the words are
+    those of the sequential scan."""
     if axis < 0:
         axis = a.ndim + axis
     if axis == 0:
         raise ValueError("axis 0 is the word axis")
-    a_moved = torch.movedim(a, axis, 1)  # (W, n, ...)
-    n = a_moved.shape[1]
-    zero_mask = is_zero(f, a_moved)  # (n, ...)
-    one = ones(f, a_moved.shape[2:], a.device)
-    xs = [select(zero_mask[i], one, a_moved[:, i]) for i in range(n)]
-    prefix = []
-    carry = one
-    for x in xs:
-        prefix.append(carry)
-        carry = mul(f, carry, x)
-    carry = inv(f, carry)
-    out = [None] * n
-    for i in range(n - 1, -1, -1):
-        out[i] = mul(f, carry, prefix[i])
-        if i:
-            carry = mul(f, carry, xs[i])
-    res = torch.stack(out, dim=1)
-    res = select(zero_mask, torch.zeros_like(res), res)
+    a = torch.movedim(a, axis, 1)
+    n, s = a.shape[1], 1
+    while s < n:
+        a = torch.cat([a[:, :s], op(a[:, s:], a[:, :n - s])], dim=1)
+        s *= 2
+    return torch.movedim(a, 1, axis)
+
+
+def batch_inverse(f: FieldSpec, a: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Montgomery-trick batch inverse along a batch axis (zeros -> zeros):
+    1/a_i = (prod_{j<i} a_j)(prod_{j>i} a_j) / prod_j a_j, the prefix and
+    suffix products as two log-depth ``scan``s, one Fermat inverse."""
+    if axis < 0:
+        axis = a.ndim + axis
+    if axis == 0:
+        raise ValueError("axis 0 is the word axis")
+    x = torch.movedim(a, axis, 1)  # (W, n, ...)
+    zero = is_zero(f, x)
+    one = ones(f, (1,) + x.shape[2:], a.device)
+    x = select(zero, one.expand_as(x), x)
+    mul_f = lambda u, v: mul(f, u, v)  # noqa: E731
+    pre = scan(mul_f, x)
+    suf = torch.flip(scan(mul_f, torch.flip(x, dims=[1])), dims=[1])
+    excl = mul(f, torch.cat([one, pre[:, :-1]], dim=1), torch.cat([suf[:, 1:], one], dim=1))
+    res = mul(f, excl, inv(f, pre[:, -1:]))
+    res = select(zero, torch.zeros_like(res), res)
     return torch.movedim(res, 1, axis)

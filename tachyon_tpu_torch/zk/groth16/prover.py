@@ -17,7 +17,8 @@ WitnessMapFromMatrices, zk/r1cs/groth16 prove.h and verify.h).
   in exact ints (``math/host_ec`` through ``r1cs``'s helpers).
 * verification: the host pairing product (four Miller loops).
 
-The replay dump of the JAX prover (``io/replay.py``) is not ported.
+With TACHYON_MSM_DUMP_PATH set, ``prove`` dumps the A query's MSM inputs
+for the replay debugger (``io/replay.py``), where the JAX prover does.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from tachyon_tpu_torch.fields import limbs
+from tachyon_tpu_torch.io import replay
 from tachyon_tpu_torch.io.zkey import ZKeyData
 from tachyon_tpu_torch.math import curves
 from tachyon_tpu_torch.math import pairing_bn254 as pairing
@@ -143,6 +145,9 @@ class CircomGroth16Prover:
         with step("witness_map"):
             h_std = mont.mont_reduce(F.spec, self.witness_map(mont.to_mont(F.spec, w_std)))
         npub1 = zk.num_public + 1
+        # optional input dump for the replay debugger (reference:
+        # msm_gpu_replay.cc / TACHYON_PCS_PARAMS_LOG_PATH)
+        replay.dump_msm("bn254_g1", self.pts_a1, w_std)
         with step("msm_a"):
             a_acc = host_point(self.g1, msm(self.g1, self.pts_a1, w_std))
         with step("msm_b2_g2"):
