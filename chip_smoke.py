@@ -57,8 +57,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    device-point uploads, prove at fixed r and s (the witness map, the four
    G1 MSMs and the G2 MSM each timed by CUDA events), verify; the proof
    verifies with the host pairing and fails for the public output + 1; on
-   a chain of 2^12 constraints (GROTH16_CHECK_LOG_N) a second prove at the
-   same r and s gives the same tuple and a wrong witness's proof fails; 64
+   a chain of 2^6 constraints (GROTH16_CHECK_LOG_N: every MSM on the host,
+   at most r1cs.MSM_HOST_THRESHOLD points) a second prove at the same r and
+   s gives the same tuple and a wrong witness's proof fails; 64
    sampled a_query and b2_query points are on their curves, and the G2 MSM
    alone at n = 2^18 (256 exact multiples of the G2
    generator, tiled) equals the host point; with peak memory and the
@@ -183,7 +184,40 @@ Phases, in order; any failure raises and the script exits non-zero:
    launches (the paths abi_msm_2^20, abi_sp1_commit_2^20, abi_halo2_2^16,
    plonk_2^16).  Phase 7 also holds the mmap parser (io/native) against
    the Python parse on its 2^18 key, both timed;
-14. prints the card's line, the kernels' JSON line (an entry for every
+14. math: the last modules of the JAX package at full width, each
+   checked, with its seconds, peak memory and launches (paths circle_2^22,
+   binary_merkle_2^20, lincomb_2^22, sparse_2^16, fq12_2^16): the M31
+   circle's order-2^22 subgroup built by 22 batched adds of the doubling
+   table, every point on the circle, add, double, neg, antipode and
+   scalar_mul by a 31-bit k on the batch against the subgroup's own points,
+   g^(2^22) the identity, 1024 lanes against host ints (K1 at W = 1); the
+   GF(2^k) tower (PyTorch bitwise ops, no kernel): GF(2^128) mul, square
+   and inv on 2^22 elements, GF(2^32) and GF(2^8) mul on 2^24, 1024 lanes
+   against the host scalar tower, a a^-1 = 1 on every nonzero lane; the
+   binary Merkle tree over baby_bear_p3_w16's compress at 2^20 leaves of
+   8-element digests, 8 first-layer nodes rehashed on the host, 64
+   openings verified, a tampered leaf refused; a LinearCombination of 3
+   Goldilocks MLEs of 2^22 (combine and evaluate against the combined
+   table and mle.evaluate); a SparseUnivariate over BN254 Fr of 2^10 terms
+   of degree below 2^22 at 2^16 points, 64 against host ints; BN254 Fq12
+   mul, square and inv on 2^16 elements and pow_const by p on 2^10, sampled
+   lanes against a host-int tower, the ring laws and a a^-1 = 1 on all;
+15. cc: ``make -C tachyon_tpu_torch/cc`` builds test_cc, the C++ binding's
+   test program, and ``test_cc cuda`` runs MsmG1 at 2^20 (phase 13's points and
+   scalars), Fft at 2^20, Poseidon2Hash, the circom mul key's Groth16Prove
+   and Halo2Prove at k = 10 in its embedded interpreter (a subprocess),
+   beside the same calls through ctypes here: the bytes equal, the MSM the
+   host-exact point;
+16. parallel: ``init_process_group("nccl")`` with a file:// store, one
+   rank: msm_sharded, msm_sharded_windows and msm_sharded_2d (a 1 x 1
+   mesh, c = 17) on the 2^22 MSM's inputs, each the host-exact point and
+   the single-device MSM's; DistributedNTT fft and ifft at 2^22 over
+   bn254_fr, DistributedCosetLDE on BabyBear 2^20 x 100 at log_blowup 2 and
+   fft_batch_dist, word for word with Radix2Domain and coset_lde_batch;
+   with launches (paths msm_sharded_2^22, msm_sharded_windows_2^22,
+   msm_sharded_2d_2^22, ntt_dist_2^22, coset_lde_dist_2^20,
+   fft_batch_dist_2^20); the group destroyed at the end;
+17. prints the card's line, the kernels' JSON line (an entry for every
    kernel at W = 8 on a spare bit, K1 at W = 1 and W = 2, every kernel at
    W = 12 named ``<name>_w12`` and every full-width W = 8 instantiation
    named ``<name>_w8_full``), then the result line
@@ -191,7 +225,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 Each main path (4, 5 and its multiopen, 6, 7, 8's PCS and uni-STARK runs,
 9, 10's and 11's LDE, 12's two circuits, 13's ABI MSM, SP1 commit, halo2
-and PLONK) runs with every launch count set
+and PLONK, 14's and 16's paths) runs with every launch count set
 to 0 just before it, and fails if a kernel of that path (MSM_PATH,
 KZG_PATH, GROTH16_PATH, CIRCOM_PATH, STARK_PATH, GOLDILOCKS_PATH,
 HALO2_PATH, PLONK_PATH) was launched no time; the launches are also
@@ -208,6 +242,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -221,25 +256,31 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from scripts import circom_key, fri_pinned, make_torch_halo2_fixture
 from scripts.make_torch_stark_fixture import fib_air
 from tachyon_tpu_torch import cli
-from tachyon_tpu_torch.crypto import kzg, multiopen, pedersen, poseidon2, sumcheck, transcript
+from tachyon_tpu_torch.crypto import (binary_merkle, kzg, multiopen, pedersen, poseidon2, sumcheck,
+                                      transcript)
 from tachyon_tpu_torch.crypto.challenger import DuplexChallenger
 from tachyon_tpu_torch.crypto.simple_fri import SimpleFRI
 from tachyon_tpu_torch.crypto.fri import FRIConfig, TwoAdicFRIPCS
 from tachyon_tpu_torch.fields import extensions, limbs, presets
 from tachyon_tpu_torch.io import replay
 from tachyon_tpu_torch.io.zkey import parse_wtns, parse_zkey
-from tachyon_tpu_torch.math import curves, fixed_msm, glv, host_ec, mle, poly
+from tachyon_tpu_torch.math import curves, fixed_msm, glv, host_ec, mle, pairing_bn254, poly
 from tachyon_tpu_torch.math import msm as msm_mod
+from tachyon_tpu_torch.math.binary_field import binary_field
+from tachyon_tpu_torch.math.circle import CirclePoint, m31_circle
 from tachyon_tpu_torch.math.ec import AffinePoint, PointXYZZ
 from tachyon_tpu_torch.math.msm import _blind_points, _bcast, msm, optimal_window_bits
 from tachyon_tpu_torch.math.field import PrimeField
 from tachyon_tpu_torch.math.extfield import HostExt
 from tachyon_tpu_torch.math.ntt import DomainCache, MixedRadixDomain, Radix2Domain, coset_lde_batch
+from tachyon_tpu_torch.math.sparse import LinearCombination, SparseUnivariate
 from tachyon_tpu_torch.ops import _build, cuda_ec, cuda_mont, cuda_msm, mont
+from tachyon_tpu_torch.parallel import mesh, msm_sharded, ntt_dist
 from tachyon_tpu_torch.zk.air import expressions as air_expr
 from tachyon_tpu_torch.zk.air.stark import UniStark
 from tachyon_tpu_torch.zk.groth16 import circuits, prover, r1cs
@@ -253,7 +294,10 @@ KZG_LOG_N = 20  # the KZG path
 KZG_SAMPLES = 64  # SRS points checked against host ints, of each kind
 GROTH16_LOG_N = 18  # the Groth16 path: 2^18 constraints, a domain of 2^18
 GROTH16_SAMPLES = 64  # a_query and b2_query points checked on their curves
-GROTH16_CHECK_LOG_N = 12  # phase 6's repeat and wrong-witness checks
+# phase 6's repeat and wrong-witness proves: at 2^6 constraints every MSM
+# is one of at most MSM_HOST_THRESHOLD points, where a generic G2 MSM of
+# 2^12 points costs 20-27 s a prove (its window path is host-issued)
+GROTH16_CHECK_LOG_N = 6
 CIRCOM_LOG_N = 18  # the circom path: a domain of 2^18 (square chain + public-input constraints)
 CIRCOM_CHECK_LOG_N = 12  # the circom checks against a repeat, a wrong witness, the native prover
 # the STARK path: the reference's benchmark/fri row at 2^20 (BabyBear,
@@ -3493,6 +3537,558 @@ def mmap_check(zpath: Path, wpath: Path, device) -> dict:
     return t
 
 
+# phase 14, math and crypto (the last modules of the JAX package): the M31
+# circle's order-2^22 subgroup (a Circle-STARK trace domain), the GF(2^k)
+# tower at Binius's top level, the binary Merkle tree over BabyBear
+# Poseidon2, a LinearCombination of three Goldilocks MLEs (the sumcheck's
+# field and size), a sparse univariate over BN254 Fr and the BN254 Fq12
+# tower (a batch verifier's Miller-loop accumulators)
+CIRCLE_LOG_N = 22
+CIRCLE_SAMPLES = 1024
+CIRCLE_K = 1868121971  # a 31-bit scalar
+TOWER = ((128, 22), (32, 24), (8, 24))  # GF(2^k) and log2 of its batch
+TOWER_SAMPLES = 1024
+MERKLE_LOG_LEAVES = 20
+MERKLE_DIGEST = 8
+MERKLE_OPENINGS = 64
+LINCOMB_LOG_N = 22
+SPARSE = (10, 22, 16)  # log2 of the terms, of the degree bound, of the points
+SPARSE_SAMPLES = 64
+FQ12_LOG_N = 16
+FQ12_POW_LOG_N = 10
+FQ12_SAMPLES = 16
+FQ12_POW_SAMPLES = 4
+CIRCLE_PATH = ("mont_mul_w1",)
+MERKLE_PATH = ("mont_mul_w1",)
+LINCOMB_PATH = ("mont_mul_w2",)
+SPARSE_PATH = ("mont_mul",)
+FQ12_PATH = ("mont_mul",)
+
+
+def counted_path(path, fn):
+    """fn() with every launch count set to 0 and the peak memory reset just
+    before it, synchronized: (result, seconds, peak bytes, launches); raises
+    if a kernel of ``path`` was launched no time."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated(), read_launches(path)
+
+
+def circle_host_mul(a, b, p: int) -> tuple:
+    return ((a[0] * b[0] - a[1] * b[1]) % p, (a[0] * b[1] + a[1] * b[0]) % p)
+
+
+def circle_host_pow(g, k: int, p: int) -> tuple:
+    acc = (1, 0)
+    while k:
+        if k & 1:
+            acc = circle_host_mul(acc, g, p)
+        g = circle_host_mul(g, g, p)
+        k >>= 1
+    return acc
+
+
+def circle_check(device) -> tuple[dict, dict]:
+    """The order-2^CIRCLE_LOG_N subgroup built on the card from
+    subgroup_generator by CIRCLE_LOG_N batched adds of the doubling table
+    (point i = g^i); every point on the circle; add, double, neg and
+    antipode on the batch; scalar_mul by a 31-bit k equal to the subgroup's
+    own points at i k (every lane); g^(2^CIRCLE_LOG_N) the identity;
+    CIRCLE_SAMPLES lanes equal host ints."""
+    C = m31_circle(device)
+    p, n = C.F.p, 1 << CIRCLE_LOG_N
+    g = C.subgroup_generator(CIRCLE_LOG_N)
+    table = [g]
+    for _ in range(CIRCLE_LOG_N - 1):
+        table.append(circle_host_mul(table[-1], table[-1], p))
+
+    def build():
+        pts = C.identity((1,))
+        for b in range(CIRCLE_LOG_N):  # [pts, pts + g^(2^b)]: point i is g^i
+            step = C.add(pts, C.encode([table[b]]))
+            pts = CirclePoint(torch.cat([pts.x, step.x], 1), torch.cat([pts.y, step.y], 1))
+        return pts
+
+    pts, build_s, peak, launches = counted_path(CIRCLE_PATH, build)
+    one = C.identity((n,))
+    times = {"build_s": round(build_s, 4)}
+    if not bool(C.is_on_circle(pts).all()):
+        raise AssertionError("circle: a point of the subgroup is off the circle")
+
+    def ops():
+        tripled = C.add(pts, C.double(pts))  # g^(3i)
+        cancel = C.add(pts, C.neg(pts))
+        anti = C.antipode(pts)
+        return tripled, cancel, anti, C.scalar_mul(pts, CIRCLE_K)
+
+    (tripled, cancel, anti, powk), ops_s, _, ops_launches = counted_path(CIRCLE_PATH, ops)
+    times["ops_s"] = round(ops_s, 4)
+    launches = {k: v + ops_launches[k] for k, v in launches.items()}  # the build's and the ops
+    i = torch.arange(n, device=device)
+    for name, got, idx in (("add(P, double(P))", tripled, (3 * i) % n),
+                           ("scalar_mul", powk, (CIRCLE_K * i) % n)):
+        if not (torch.equal(got.x, pts.x[:, idx]) and torch.equal(got.y, pts.y[:, idx])):
+            raise AssertionError(f"circle: {name} is not the subgroup's own point")
+    if not (torch.equal(cancel.x, one.x) and torch.equal(cancel.y, one.y)):
+        raise AssertionError("circle: P + neg(P) is not the identity")
+    half = n // 2  # the antipode is the shift by the point of order 2, g^(n/2)
+    if not (torch.equal(anti.x[:, :half], pts.x[:, half:]) and
+            torch.equal(anti.y[:, :half], pts.y[:, half:])):
+        raise AssertionError("circle: antipode(g^i) is not g^(i + n/2)")
+    gen, ident = C.encode([g]), C.identity((1,))
+
+    def is_identity(q):
+        return torch.equal(q.x, ident.x) and torch.equal(q.y, ident.y)
+
+    if not is_identity(C.scalar_mul(gen, n)) or is_identity(C.scalar_mul(gen, n // 2)):
+        raise AssertionError("circle: g^(2^22) is not the identity, or g^(2^21) is")
+    idx = torch.randint(0, n, (CIRCLE_SAMPLES,), device=device)
+    xs, ys = C.decode(CirclePoint(pts.x[:, idx], pts.y[:, idx]))
+    want = [circle_host_pow(g, int(k), p) for k in idx.tolist()]
+    if [(int(x), int(y)) for x, y in zip(xs, ys)] != want:
+        raise AssertionError("circle: sampled points differ from host ints")
+    return ({"points": n, **times, "peak_mem_bytes": peak, "sampled": CIRCLE_SAMPLES},
+            launches)
+
+
+@functools.lru_cache(maxsize=None)
+def tower_mul_alpha(x: int, k: int) -> int:
+    """The JAX test's scalar reference (tests/test_binary_field.py)."""
+    if k == 1:
+        return x
+    h = k // 2
+    m = (1 << h) - 1
+    x0, x1 = x & m, x >> h
+    return x1 | ((x0 ^ tower_mul_alpha(x1, h)) << h)
+
+
+@functools.lru_cache(maxsize=None)
+def tower_mul(a: int, b: int, k: int) -> int:
+    """GF(2^k) product on host ints (the same test's ``ref_mul``; cached, so
+    the low levels' products are looked up)."""
+    if k == 1:
+        return a & b
+    h = k // 2
+    m = (1 << h) - 1
+    a0, a1, b0, b1 = a & m, a >> h, b & m, b >> h
+    z0 = tower_mul(a0, b0, h)
+    z1 = tower_mul(a1, b1, h)
+    z2 = tower_mul(a0 ^ a1, b0 ^ b1, h) ^ z0 ^ z1
+    return (z0 ^ z1) | ((z2 ^ tower_mul_alpha(z1, h)) << h)
+
+
+def binary_tower_check(device) -> dict:
+    """GF(2^128) mul, square and inv on 2^22 elements, GF(2^32) and GF(2^8)
+    mul on 2^24 (PyTorch bitwise ops on the card: the JAX package has no
+    kernel here); TOWER_SAMPLES lanes against the host scalar tower, and
+    a a^-1 = 1 on every nonzero lane of GF(2^128)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED + 16)
+    out = {}
+    for k, log_n in TOWER:
+        T = binary_field(k, device)
+        shape = ((T.words,) if k > 32 else ()) + (1 << log_n,)
+        a, b = (mont.narrow(torch.randint(0, 1 << min(k, 32), shape, dtype=torch.int64,
+                                          generator=g, device=device)) for _ in range(2))
+        a[..., 0] = 0
+        ops = {"mul": lambda: T.mul(a, b)}
+        if k == 128:
+            ops.update(square=lambda: T.square(a), inv=lambda: T.inv(a))
+        res, rec = {}, {"n": 1 << log_n}
+        for name, fn in ops.items():
+            res[name], ms = timed_once(fn)
+            rec[f"{name}_ms"] = round(ms, 3)
+        idx = torch.randint(0, 1 << log_n, (TOWER_SAMPLES,), generator=g, device=device)
+        idx[0] = 0
+        av, bv = T.decode(a[..., idx]), T.decode(b[..., idx])
+        got = {name: T.decode(r[..., idx]) for name, r in res.items()}
+        for j in range(TOWER_SAMPLES):
+            x, y = int(av[j]), int(bv[j])
+            if int(got["mul"][j]) != tower_mul(x, y, k):
+                raise AssertionError(f"GF(2^{k}) mul: lane {int(idx[j])} differs from the host")
+            if k == 128 and (int(got["square"][j]) != tower_mul(x, x, k) or
+                             tower_mul(x, int(got["inv"][j]), k) != (1 if x else 0)):
+                raise AssertionError(f"GF(2^128) square or inv: lane {int(idx[j])} is wrong")
+        if k == 128:
+            prod = T.mul(a, res["inv"])
+            nz = ~T.is_zero(a)
+            if not bool(T.is_zero(T.add(prod, T.ones((1 << log_n,))))[nz].all()) or \
+                    not bool(T.is_zero(res["inv"][..., 0])):
+                raise AssertionError("GF(2^128): a a^-1 != 1 on a nonzero lane, or inv(0) != 0")
+        out[f"gf2^{k}"] = rec
+    return out
+
+
+def merkle_check(device) -> tuple[dict, dict]:
+    """build over 2^MERKLE_LOG_LEAVES leaves of MERKLE_DIGEST BabyBear
+    elements with baby_bear_p3_w16's compress; 8 sampled nodes of the first
+    layer rehashed with permute_host; MERKLE_OPENINGS openings verify; a
+    tampered leaf is refused."""
+    h = poseidon2.baby_bear_p3_w16(device)
+    F = h.F
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED + 17)
+    n = 1 << MERKLE_LOG_LEAVES
+    vals = torch.randint(0, F.p, (MERKLE_DIGEST, n), generator=g, device=device)
+    leaves = F.encode_canonical(vals)
+    tree, build_s, peak, launches = counted_path(MERKLE_PATH,
+                                                 lambda: binary_merkle.build(h.compress, leaves))
+    nodes = torch.randint(0, n // 2, (8,), generator=g, device=device).tolist()
+    layer1 = F.decode(tree.layers[1][:, :, nodes])
+    for j, node in enumerate(nodes):
+        st = vals[:, 2 * node].tolist() + vals[:, 2 * node + 1].tolist()
+        if h.permute_host(st)[:MERKLE_DIGEST] != [int(v) for v in layer1[:, j]]:
+            raise AssertionError(f"binary Merkle: node {node} of layer 1 is not the host hash")
+    root = tree.root()
+    t0 = time.perf_counter()
+    idx = torch.randint(0, n, (MERKLE_OPENINGS,), generator=g, device=device).tolist()
+    for i in idx:
+        if not binary_merkle.verify(h.compress, root, i, leaves[:, :, i],
+                                    binary_merkle.open_at(tree, i)):
+            raise AssertionError(f"binary Merkle: the opening of leaf {i} does not verify")
+    open_s = time.perf_counter() - t0
+    bad = leaves[:, :, idx[0]].clone()
+    bad[:, 0] = F.encode((int(F.decode(bad[:, 0])) + 1) % F.p)
+    if binary_merkle.verify(h.compress, root, idx[0], bad, binary_merkle.open_at(tree, idx[0])):
+        raise AssertionError("binary Merkle: a tampered leaf verifies")
+    return ({"leaves": n, "build_s": round(build_s, 4), "peak_mem_bytes": peak,
+             "openings": MERKLE_OPENINGS, "open_verify_s": round(open_s, 3)}, launches)
+
+
+def lincomb_check(device) -> tuple[dict, dict]:
+    """LinearCombination over 3 Goldilocks MLEs of 2^LINCOMB_LOG_N entries
+    with product terms: combine equals the field sum of the combined
+    table; evaluate equals the terms of mle.evaluate's values (host ints).
+    Its linear part: evaluate equals mle.evaluate of the combined table,
+    and combine equals 2^nv times that table's value at (1/2, ..., 1/2)."""
+    F = PrimeField(presets.GOLDILOCKS, device)
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED + 18)
+    nv = LINCOMB_LOG_N
+    rng = np.random.default_rng(SEED + 18)
+    tables = [mont.to_mont(F.spec, gl_random((1 << nv,), g, device)) for _ in range(3)]
+    cs = [int(v) for v in rng.integers(1, 1 << 62, 4)]
+    terms = [(cs[0], [0, 1]), (cs[1], [2]), (cs[2], [0, 1, 2]), (cs[3], [])]
+    point = [int(v) for v in rng.integers(0, 1 << 62, nv)]
+    pt = [F.encode(v) for v in point]
+    lc = LinearCombination(F, nv)
+    for t in tables:
+        lc.add_mle(t)
+    for c, idx in terms:
+        lc.add_term(c, idx)
+    (claim, value), seconds, peak, launches = counted_path(
+        LINCOMB_PATH, lambda: (lc.combine(), lc.evaluate(pt)))
+    combined = F.zeros((1 << nv,))
+    for c, idx in terms:
+        prod = F.full((1 << nv,), c)
+        for t in idx:
+            prod = F.mul(prod, tables[t])
+        combined = F.add(combined, prod)
+    if not torch.equal(claim, F.sum(combined)):
+        raise AssertionError("LinearCombination: combine is not the sum of the combined table")
+    vals = [int(F.decode(mle.evaluate(F, t, pt))) for t in tables]
+    want = 0
+    for c, idx in terms:
+        term = c
+        for t in idx:
+            term = term * vals[t] % F.p
+        want = (want + term) % F.p
+    if int(F.decode(value)) != want:
+        raise AssertionError("LinearCombination: evaluate differs from the MLEs' values")
+    lin = LinearCombination(F, nv)
+    for t in tables:
+        lin.add_mle(t)
+    lin.add_term(cs[1], [2])
+    lin.add_term(cs[0], [0])
+    table = F.add(F.mul(F.full((1 << nv,), cs[1]), tables[2]),
+                  F.mul(F.full((1 << nv,), cs[0]), tables[0]))
+    half = [F.encode((F.p + 1) // 2)] * nv
+    centre = int(F.decode(mle.evaluate(F, table, half)))
+    if not torch.equal(lin.evaluate(pt), mle.evaluate(F, table, pt)) or \
+            int(F.decode(lin.combine())) != centre * (1 << nv) % F.p:
+        raise AssertionError("LinearCombination: the linear part disagrees with mle.evaluate")
+    return ({"entries": 1 << nv, "mles": 3, "terms": len(terms), "s": round(seconds, 4),
+             "peak_mem_bytes": peak}, launches)
+
+
+def sparse_check(device) -> tuple[dict, dict]:
+    """A SparseUnivariate over BN254 Fr of 2^SPARSE[0] terms of degree below
+    2^SPARSE[1] (0 and 2^SPARSE[1] - 1 among them) evaluated at 2^SPARSE[2]
+    points in one call; SPARSE_SAMPLES points against host ints."""
+    log_k, log_d, log_z = SPARSE
+    F = curves.bn254_fr(device)
+    rng = np.random.default_rng(SEED + 19)
+    degs = {0, (1 << log_d) - 1}
+    while len(degs) < 1 << log_k:
+        degs.add(int(rng.integers(1, 1 << log_d)))
+    terms = {d: int.from_bytes(rng.bytes(40), "little") % F.p for d in degs}
+    sp = SparseUnivariate.from_dict(F, terms)
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED + 19)
+    z = random_elements(F.spec, 1 << log_z, g, device)
+    vals, seconds, peak, launches = counted_path(SPARSE_PATH, lambda: sp.evaluate(z))
+    idx = torch.randint(0, 1 << log_z, (SPARSE_SAMPLES,), generator=g, device=device)
+    idx[:3] = torch.arange(3, device=device)  # 0, 1 and p - 1
+    zs, got = F.decode(z[:, idx]), F.decode(vals[:, idx])
+    for zi, v in zip(zs, got):
+        zi = int(zi)
+        if int(v) != sum(c * pow(zi, d, F.p) for d, c in terms.items()) % F.p:
+            raise AssertionError("SparseUnivariate: a sampled value differs from host ints")
+    return ({"terms": 1 << log_k, "degree_below": 1 << log_d, "points": 1 << log_z,
+             "s": round(seconds, 4), "peak_mem_bytes": peak, "sampled": SPARSE_SAMPLES},
+            launches)
+
+
+def fq12_lane(F12, x, i: int):
+    """Lane i of an Fq12 tensor as host ints in pairing_bn254's nesting,
+    ((c0, c1) * 3) * 2."""
+    d = F12.decode(x[..., i:i + 1])
+    return tuple(tuple((int(d[h][c][0][0]), int(d[h][c][1][0])) for c in range(3))
+                 for h in range(2))
+
+
+def fq12_check(device) -> tuple[dict, dict]:
+    """BN254 Fq12 mul, square and inv on 2^FQ12_LOG_N elements and pow_const
+    by p (the Frobenius map) on 2^FQ12_POW_LOG_N; sampled lanes against
+    pairing_bn254's host-int tower; (a + b)^2 = a^2 + 2ab + b^2 and a a^-1 = 1 on every
+    lane."""
+    F12 = curves.bn254_fq12(device)
+    p, n = F12.p, 1 << FQ12_LOG_N
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED + 20)
+
+    def rand():
+        w = random_elements(presets.BN254_FQ, 12 * n, g, device)  # (8, 12 n)
+        return w.reshape(8, 2, 3, 2, n).permute(1, 2, 3, 0, 4).contiguous()
+
+    a, b = rand(), rand()
+
+    def ops():
+        return (F12.mul(a, b), F12.square(a), F12.inv(a),
+                F12.pow_const(a[..., :1 << FQ12_POW_LOG_N], p))
+
+    (ab, aa, ainv, frob), seconds, peak, launches = counted_path(FQ12_PATH, ops)
+    times = {name: round(timed_once(fn)[1], 3) for name, fn in (
+        ("mul_ms", lambda: F12.mul(a, b)), ("square_ms", lambda: F12.square(a)),
+        ("inv_ms", lambda: F12.inv(a)))}
+    lhs = F12.square(F12.add(a, b))
+    rhs = F12.add(F12.add(aa, F12.double(ab)), F12.square(b))
+    if not bool(F12.eq(lhs, rhs).all()):
+        raise AssertionError("Fq12: (a + b)^2 != a^2 + 2ab + b^2 on some lane")
+    if not bool(F12.eq(F12.mul(a, ainv), F12.ones((n,))).all()):
+        raise AssertionError("Fq12: a a^-1 != 1 on some lane")
+    for i in torch.randint(0, n, (FQ12_SAMPLES,), generator=g, device=device).tolist():
+        x, y = fq12_lane(F12, a, i), fq12_lane(F12, b, i)
+        if fq12_lane(F12, ab, i) != pairing_bn254.f12_mul(x, y) or \
+                fq12_lane(F12, aa, i) != pairing_bn254.f12_mul(x, x) or \
+                pairing_bn254.f12_mul(x, fq12_lane(F12, ainv, i)) != pairing_bn254.F12_ONE:
+            raise AssertionError(f"Fq12: lane {i} differs from the host tower")
+    for i in range(FQ12_POW_SAMPLES):
+        if fq12_lane(F12, frob, i) != pairing_bn254.f12_pow(fq12_lane(F12, a, i), p):
+            raise AssertionError(f"Fq12 pow_const by p: lane {i} differs from the host tower")
+    return ({"n": n, "pow_n": 1 << FQ12_POW_LOG_N, "s": round(seconds, 4), **times,
+             "peak_mem_bytes": peak}, launches)
+
+
+def phase_math(device):
+    """Phase 14: the circle, the binary tower, the binary Merkle tree, the
+    LinearCombination, the sparse univariate and Fq12, each checked.
+    Returns the paths' launches."""
+    rec, paths = {}, {}
+    for name, path, fn in (("circle", f"circle_2^{CIRCLE_LOG_N}", circle_check),
+                           ("binary_merkle", f"binary_merkle_2^{MERKLE_LOG_LEAVES}", merkle_check),
+                           ("lincomb", f"lincomb_2^{LINCOMB_LOG_N}", lincomb_check),
+                           ("sparse", f"sparse_2^{SPARSE[2]}", sparse_check),
+                           ("fq12", f"fq12_2^{FQ12_LOG_N}", fq12_check)):
+        t0 = time.perf_counter()
+        rec[name], paths[path] = fn(device)
+        rec[name]["check_s"] = round(time.perf_counter() - t0, 3)
+        log(f"[math] {name} verified=True {json.dumps(rec[name])} "
+            f"launches={json.dumps({k: v for k, v in paths[path].items() if v})}")
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec["binary_tower"] = binary_tower_check(device)
+    log(f"[math] binary_tower verified=True {json.dumps(rec['binary_tower'])} "
+        f"check_s={time.perf_counter() - t0:.3f} (PyTorch bitwise ops; no kernel)")
+    return paths
+
+
+# phase 15, the C++ binding: test_cc (tachyon_tpu_torch/cc) under
+# Runtime("cuda") in its embedded interpreter, beside the same calls through
+# ctypes in this process; its bytes must equal theirs
+CC_DIR = Path(__file__).resolve().parent / "tachyon_tpu_torch" / "cc"
+CC_HALO2_K = 10
+
+
+def build_cc() -> tuple[Path, float]:
+    """``make -C tachyon_tpu_torch/cc`` (the C library if needed, then
+    test_cc, into tachyon_tpu_torch/_build/c); raises with make's output."""
+    t0 = time.perf_counter()
+    r = subprocess.run(["make", "-C", str(CC_DIR)], capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"test_cc did not build ({r.returncode}):\n{r.stdout}{r.stderr}")
+    return C_DIR.parent / "_build" / "c", time.perf_counter() - t0
+
+
+def phase_cc(device):
+    """Phase 15: test_cc cuda runs MsmG1 at 2^ABI_MSM_LOG_N (phase 13's
+    points and scalars), Fft at 2^ABI_FFT_LOG_N, Poseidon2Hash, the circom
+    mul key's Groth16Prove (no_zk) and Halo2Prove at k = CC_HALO2_K in a
+    subprocess; this process makes the same calls through ctypes (the MSM
+    also against the host-exact point); every output's bytes equal."""
+    lib_dir, build_s = build_cc()
+    curve = curves.bn254_g1(device)
+    n = 1 << ABI_MSM_LOG_N
+    bases, scalars, _, _, expected = abi_msm_inputs(curve, n, SEED + 13)
+    rng = np.random.default_rng(SEED + 21)
+    words = rng.integers(0, 1 << 32, size=(8, 1 << ABI_FFT_LOG_N), dtype=np.uint32)
+    words[7] &= 0x0FFFFFFF  # below r
+    fft_in = words.T.tobytes()
+    pos_in = b"".join(pow(3, 50 + i, curve.SF.p).to_bytes(32, "little") for i in range(5))
+    spec = halo2_mul_json(CC_HALO2_K, (1 << CC_HALO2_K) - 64, SEED + 21)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "msm.bases").write_bytes(bases)
+        (tmp / "msm.scalars").write_bytes(scalars)
+        (tmp / "fft.in").write_bytes(fft_in)
+        (tmp / "poseidon2.in").write_bytes(pos_in)
+        for ext in ("zkey", "wtns"):
+            (tmp / f"mul.{ext}").write_bytes(Path(f"{CIRCOM_MUL}.{ext}").read_bytes())
+        (tmp / "halo2.json").write_text(spec)
+        jobs = ["msm:msm", "fft:fft:0", "poseidon2:poseidon2", "groth16:mul", "halo2:halo2"]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([str(lib_dir / "test_cc"), device.type, str(tmp), *jobs],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                env=subprocess_env())
+        try:
+            lib = load_capi(lib_dir / "libtachyon_tpu_c.so")
+            abi_call(lib, "tachyon_tpu_init", device.type.encode())
+            # the ctypes call's bytes are the host-exact point's (checked)
+            want = {"msm": abi_msm_check(lib, curve, bases, scalars, n, expected),
+                    "msm.out": point_bytes(expected)}
+            fwd = (ctypes.c_uint8 * len(fft_in))()
+            abi_call(lib, "tachyon_tpu_bn254_fft", abi_bytes(fft_in), 1 << ABI_FFT_LOG_N, 0, fwd)
+            want["fft.out"] = bytes(fwd)
+            dig = (ctypes.c_uint8 * 32)()
+            abi_call(lib, "tachyon_tpu_bn254_poseidon2_hash", abi_bytes(pos_in), 5, dig)
+            want["poseidon2.out"] = bytes(dig)
+            proof, public = abi_strings(lib, "tachyon_tpu_bn254_groth16_prove", 2,
+                                        str(tmp / "mul.zkey").encode(),
+                                        str(tmp / "mul.wtns").encode(), 1, 1)
+            want["mul.proof.json"], want["mul.public.json"] = proof.encode(), public.encode()
+            (hexproof,) = abi_strings(lib, "tachyon_tpu_halo2_bn254_prove", 1, spec.encode())
+            want["halo2.hex"] = hexproof.encode()
+            ctypes_s = time.perf_counter() - t0
+            stdout, stderr = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:  # a ctypes call failed: stop test_cc too
+                proc.kill()
+                proc.wait()
+        cc_s = time.perf_counter() - t0
+        if proc.returncode != 0 or not stdout.strip().endswith("OK"):
+            raise AssertionError(f"test_cc cuda failed ({proc.returncode}): {stdout}{stderr}")
+        for name, data in want.items():
+            if name != "msm" and (tmp / name).read_bytes() != data:
+                raise AssertionError(f"test_cc: {name} differs from the ctypes call's bytes")
+    job_s = dict(line.rsplit(" ", 1) for line in stdout.splitlines()[1:-1])
+    rec = {"build_s": round(build_s, 1), "subprocess_s": round(cc_s, 1),
+           "ctypes_beside_s": round(ctypes_s, 1), "msm_ctypes": want["msm"],
+           "halo2_k": CC_HALO2_K, "job_s": {k: round(float(v), 3) for k, v in job_s.items()}}
+    log(f"[cc] test_cc cuda verified=True (bytes equal to ctypes) {json.dumps(rec)}")
+    return {}
+
+
+# phase 16, parallel/ in a one-rank nccl group on the one card, each result
+# held against the single-device path
+PAR_LOG_N = 22
+PAR_WINDOW_C = 17
+PAR_LDE = (20, 100, 2, 31)  # log2 rows, columns, log_blowup, shift (BabyBear's generator)
+
+
+def phase_parallel(device):
+    """Phase 16: init_process_group("nccl") with a file:// store under a
+    temporary directory (rank 0 of 1); msm_sharded, msm_sharded_windows and
+    msm_sharded_2d (a 1 x 1 mesh, c = 17) on slice_inputs(2^22) against the
+    host-exact point and the single-device MSM; DistributedNTT fft and ifft
+    at 2^22 over bn254_fr against Radix2Domain, DistributedCosetLDE on
+    BabyBear 2^20 x 100 at log_blowup 2 against coset_lde_batch and
+    fft_batch_dist against Radix2Domain, word for word.  The group is
+    destroyed at the end.  Returns the paths' launches."""
+    torch.cuda.set_device(device)
+    paths, rec = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0,
+                                world_size=1)
+        try:
+            dp = mesh.data_mesh(device=device)
+            win = mesh.data_mesh(axis="win", device=device)
+            grid = mesh.grid_mesh((1, 1), ("dp", "win"), device=device)
+            rec["init_s"] = round(time.perf_counter() - t0, 3)
+            curve = curves.bn254_g1(device)
+            n = 1 << PAR_LOG_N
+            points, scalars, ks, sc = slice_inputs(curve, n)
+            G = (int(curve.gen_x), int(curve.gen_y))
+            expected = host_ec.msm_tiled(G, ks, sc, 0, curve.F.p, curve.SF.p)
+            single = curve.to_affine(msm(curve, points, scalars))
+            for name, run in (
+                    ("msm_sharded", lambda: msm_sharded.msm_sharded(curve, dp, points, scalars)),
+                    ("msm_sharded_windows", lambda: msm_sharded.msm_sharded_windows(
+                        curve, win, points, scalars, PAR_WINDOW_C)),
+                    ("msm_sharded_2d", lambda: msm_sharded.msm_sharded_2d(
+                        curve, grid, points, scalars, PAR_WINDOW_C))):
+                r = verified_msm(curve, f"{name} 2^{PAR_LOG_N}", run, expected, MSM_PATH, 1)
+                aff = curve.to_affine(run())
+                if not (torch.equal(aff.x, single.x) and torch.equal(aff.y, single.y)):
+                    raise AssertionError(f"{name}: not the single-device MSM's point")
+                paths[f"{name}_2^{PAR_LOG_N}"] = r["launches"]
+                rec[name] = {k: r[k] for k in ("first_s", "best_s", "peak_mem_bytes")}
+            del points, scalars
+            Fr = curves.bn254_fr(device)
+            g = torch.Generator(device=device)
+            g.manual_seed(SEED + 22)
+            x = random_elements(Fr.spec, n, g, device)
+            dn = ntt_dist.DistributedNTT(Fr, n, dp)
+            def fft_ifft():
+                y = dn.fft(x)
+                return y, dn.ifft(y)
+
+            (y, back), s, peak, launches = counted_path(("mont_mul",), fft_ifft)
+            if not torch.equal(y, Radix2Domain(Fr, n).fft(x)) or not torch.equal(back, x):
+                raise AssertionError("DistributedNTT: not Radix2Domain's words, or no round trip")
+            paths[f"ntt_dist_2^{PAR_LOG_N}"] = launches
+            rec["ntt_dist"] = {"n": n, "fft_ifft_s": round(s, 4), "peak_mem_bytes": peak}
+            del x, y, back
+            log_rows, cols, log_blowup, shift = PAR_LDE
+            B = PrimeField(presets.BABY_BEAR, device)
+            evals = B.encode_canonical(torch.randint(0, B.p, (1 << log_rows, cols), generator=g,
+                                                     device=device))
+            dlde = ntt_dist.DistributedCosetLDE(B, 1 << log_rows, log_blowup, shift, dp)
+            lde, s, peak, launches = counted_path(("mont_mul_w1",), lambda: dlde(evals))
+            if not torch.equal(lde, coset_lde_batch(Radix2Domain(B, 1 << log_rows), evals,
+                                                    log_blowup, shift)):
+                raise AssertionError("DistributedCosetLDE: not coset_lde_batch's words")
+            paths[f"coset_lde_dist_2^{log_rows}"] = launches
+            rec["coset_lde_dist"] = {"rows": 1 << log_rows, "cols": cols, "s": round(s, 4),
+                                     "peak_mem_bytes": peak}
+            del lde
+            torch.cuda.empty_cache()
+            fb, s, peak, launches = counted_path(("mont_mul_w1",),
+                                                 lambda: ntt_dist.fft_batch_dist(B, dp, evals))
+            if not torch.equal(fb, Radix2Domain(B, 1 << log_rows)._transform(evals, False)):
+                raise AssertionError("fft_batch_dist: not Radix2Domain's words")
+            paths[f"fft_batch_dist_2^{log_rows}"] = launches
+            rec["fft_batch_dist"] = {"s": round(s, 4), "peak_mem_bytes": peak}
+        finally:
+            dist.destroy_process_group()
+    log(f"[parallel] nccl world_size=1 verified=True {json.dumps(rec)}")
+    return paths
+
+
 def ptxas_registers(nvcc_log: str) -> dict:
     """Registers and spill-store bytes of each kernel from ptxas's -v
     lines, by the kernel's unmangled name and its template arguments
@@ -3613,6 +4209,9 @@ def main() -> int:
     gl_launches = phase("goldilocks", phase_goldilocks, clock_hz, results)
     halo2_launches = phase("halo2", phase_halo2)
     surface_launches = phase("surfaces", phase_surfaces)
+    math_launches = phase("math", phase_math)
+    phase("cc", phase_cc)
+    parallel_launches = phase("parallel", phase_parallel)
     bls_path = f"groth16_bls12_381_2^{BLS_LOG_N}"
     log(f"[phases] seconds {json.dumps(phase_s)}, since the build started "
         f"{time.perf_counter() - t0:.1f} s")
@@ -3650,7 +4249,7 @@ def main() -> int:
              f"stark_2^{STARK_LOG_N}": stark_launches,
              f"goldilocks_2^{GL_LDE[0]}": gl_launches,
              f"multiopen_2^{KZG_LOG_N}": multiopen_launches, **halo2_launches,
-             **surface_launches}
+             **surface_launches, **math_launches, **parallel_launches}
     # an entry for every kernel at W = 8 on a spare bit (K1 at W = 1 and 2 too),
     # with every main path's launches, then one named <name>_w12 for each
     # W = 12 instantiation, checked and timed at the BLS12-381 path's shapes,

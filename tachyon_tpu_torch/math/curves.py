@@ -1,7 +1,8 @@
 """Concrete curve instances of the port (parameters as in
 ``tachyon_tpu/math/curves.py``): BN254 G1 over Fq and G2 over
-Fq2 = Fq[u]/(u^2 + 1); BLS12-381 G1 over its 381-bit Fq (12 words) and
-G2 on the M-twist y^2 = x^3 + 4(u + 1) over its Fq2 = Fq[u]/(u^2 + 1);
+Fq2 = Fq[u]/(u^2 + 1), with the tower Fq6 = Fq2[v]/(v^3 - (9 + u)) and
+Fq12 = Fq6[w]/(w^2 - v) (a pairing's target group); BLS12-381 G1 over its
+381-bit Fq (12 words) and G2 on the M-twist y^2 = x^3 + 4(u + 1) over its Fq2 = Fq[u]/(u^2 + 1);
 secp256k1, y^2 = x^3 + 7 over a full-width 256-bit p (the point kernels'
 64-bit CIOS form); Pallas and Vesta, y^2 = x^3 + 5, each the other's
 scalar field (255 bits: the even/odd chains, as BN254).
@@ -30,6 +31,16 @@ def bn254_fr(device=torch.device("cuda")) -> PrimeField:
 def bn254_fq2(device=torch.device("cuda")) -> ExtField:
     # Fq2 = Fq[u]/(u^2 + 1)
     return ExtField(bn254_fq(device), 2, -1, name="bn254_fq2")
+
+
+def bn254_fq6(device=torch.device("cuda")) -> ExtField:
+    # Fq6 = Fq2[v]/(v^3 - (9 + u))
+    return ExtField(bn254_fq2(device), 3, [9, 1], name="bn254_fq6")
+
+
+def bn254_fq12(device=torch.device("cuda")) -> ExtField:
+    # Fq12 = Fq6[w]/(w^2 - v): non-residue = v = (0, 1, 0) over Fq2 coeffs
+    return ExtField(bn254_fq6(device), 2, [[0, 0], [1, 0], [0, 0]], name="bn254_fq12")
 
 
 def bn254_g1(device=torch.device("cuda")) -> SWCurve:

@@ -22,7 +22,7 @@ double-and-add (``scalar_mul``: one launch of the fused ladder) and a tree
 reduce (K2).
 
 Curves without point kernels (G2 over Fq2; ``SWCurve._kernel_ok`` false)
-take the JAX package's generic path, ``_msm_generic``: the same window
+take the JAX package's generic path (``_window_sum_generic``): the same window
 with the complete formulas in field ops (K1 for every base multiply on the
 card) and the blinds at infinity.  The sweeps are row loops of the generic
 mixed add and add (``suffix_sweep_jnp`` / ``reduce_sweep_jnp``), the lane
@@ -238,26 +238,55 @@ def _window_sum_generic(curve: SWCurve, px, py, pinf, dw, C, R, B, d1, d2) -> Po
     return _tree_reduce(curve, red, C2)
 
 
-def _msm_generic(curve: SWCurve, points: AffinePoint, digits: torch.Tensor,
-                 c: int, n: int) -> PointXYZZ:
-    """The windows and Horner of the generic path; digits (nwin, n)."""
-    C, R, ((d1, _), (d2, _)) = _layout_and_blinds(curve, n)
+def window_sums(curve: SWCurve, points: AffinePoint, digits: torch.Tensor,
+                c: int) -> PointXYZZ:
+    """The sums of the windows in ``digits`` (k, n) over the n points, each
+    as a column of four (*coord, k) tensors: the kernel window
+    (``_window_sum``) on a curve with point kernels, else the generic one
+    (``_window_sum_generic``)."""
+    n, nwin, B = digits.shape[1], digits.shape[0], 1 << c
+    C, R, ((d1, nd1), (d2, nd2)) = _layout_and_blinds(curve, n)
     n_pad = R * C
-    px, py, pinf = points.x, points.y, points.inf
     if n_pad != n:  # pad lanes: zero coordinates, at infinity, digit 0
-        px = torch.nn.functional.pad(px, (0, n_pad - n))
-        py = torch.nn.functional.pad(py, (0, n_pad - n))
-        pinf = torch.nn.functional.pad(pinf, (0, n_pad - n), value=True)
         digits = torch.nn.functional.pad(digits, (0, n_pad - n))
+    if not curve._kernel_ok:
+        px, py, pinf = points.x, points.y, points.inf
+        if n_pad != n:
+            px = torch.nn.functional.pad(px, (0, n_pad - n))
+            py = torch.nn.functional.pad(py, (0, n_pad - n))
+            pinf = torch.nn.functional.pad(pinf, (0, n_pad - n), value=True)
+        wins = [_window_sum_generic(curve, px, py, pinf, digits[k], C, R, B, d1, d2)
+                for k in range(nwin)]
+        return PointXYZZ(*(torch.stack(ts, dim=-1) for ts in zip(*wins)))
+    live = (~points.inf).to(torch.int32)[None]
+    # x || y words, all zero at infinity (x = y = 0 is not on a b != 0 curve)
+    packed = torch.cat([points.x * live, points.y * live], dim=0)
+    if n_pad != n:
+        packed = torch.nn.functional.pad(packed, (0, n_pad - n))
+    wins = tuple(torch.empty((curve.F.W, nwin), dtype=torch.int32, device=packed.device)
+                 for _ in range(4))
+    blinds = (_bcast(d1, (C,)), nd1, _bcast(d2, (min(512, B),)), nd2)
+    for k in range(nwin):
+        _window_sum(curve, packed, digits[k].contiguous(), C, R, B, blinds,
+                    tuple(t[:, k] for t in wins))
+    return PointXYZZ(*wins)
+
+
+def fold_windows(curve: SWCurve, wins: PointXYZZ, c: int) -> PointXYZZ:
+    """Horner over the window sums (column k weighs 2^(c k)): acc = 2^c acc
+    + window from the top window down.  One launch of the Horner kernel on
+    a curve with point kernels, else c doublings and an add a window (the
+    doublings of the first window's infinity are all-zero words, so they
+    are skipped)."""
+    if curve._kernel_ok:
+        return PointXYZZ(*cuda_ec.horner(curve.F.spec, tuple(wins), c))
+    nwin = wins.x.shape[-1]
     acc = curve.infinity_xyzz(())
-    for k in range(digits.shape[0] - 1, -1, -1):  # MSB window first
-        win = _window_sum_generic(curve, px, py, pinf, digits[k], C, R, 1 << c, d1, d2)
-        # Horner: acc = 2^c acc + win (the doublings of the first window's
-        # infinity are all-zero words, so they are skipped)
-        if k < digits.shape[0] - 1:
+    for k in range(nwin - 1, -1, -1):
+        if k < nwin - 1:
             for _ in range(c):
                 acc = curve.dbl_xyzz(acc)
-        acc = curve.add_xyzz(acc, win)
+        acc = curve.add_xyzz(acc, PointXYZZ(*(t[..., k] for t in wins)))
     return acc
 
 
@@ -274,26 +303,5 @@ def msm(curve: SWCurve, points: AffinePoint, scalars: torch.Tensor,
         return _msm_naive(curve, points, scalars)
     total_bits = total_bits or curve.SF.spec.bits
     c = c or optimal_window_bits(total_bits, n)
-    B = 1 << c
     digits = digit_decompose(scalars, total_bits, c)  # (nwin, n)
-    if not curve._kernel_ok:
-        return _msm_generic(curve, points, digits, c, n)
-
-    C, R, ((d1, nd1), (d2, nd2)) = _layout_and_blinds(curve, n)
-    n_pad = R * C
-    live = (~points.inf).to(torch.int32)[None]
-    # x || y words, all zero at infinity (x = y = 0 is not on a b != 0 curve)
-    packed = torch.cat([points.x * live, points.y * live], dim=0)
-    if n_pad != n:
-        packed = torch.nn.functional.pad(packed, (0, n_pad - n))
-        digits = torch.nn.functional.pad(digits, (0, n_pad - n))
-
-    # each window's sum goes into its column; then Horner over all of them
-    nwin = digits.shape[0]
-    wins = tuple(torch.empty((curve.F.W, nwin), dtype=torch.int32, device=packed.device)
-                 for _ in range(4))
-    blinds = (_bcast(d1, (C,)), nd1, _bcast(d2, (min(512, B),)), nd2)
-    for k in range(nwin - 1, -1, -1):  # MSB window first
-        _window_sum(curve, packed, digits[k].contiguous(), C, R, B, blinds,
-                    tuple(t[:, k] for t in wins))
-    return PointXYZZ(*cuda_ec.horner(curve.F.spec, wins, c))
+    return fold_windows(curve, window_sums(curve, points, digits, c), c)
